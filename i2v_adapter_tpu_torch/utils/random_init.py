@@ -1,0 +1,50 @@
+"""Seeded random weights for runs without a checkpoint (smoke runs and
+profiles at full width): fan-in scaled so activations stay O(1)."""
+
+from __future__ import annotations
+
+import math
+import tempfile
+
+import torch
+
+
+def randomize_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """In place: matrices N(0, 1/fan_in), norm scales 1 + 0.1 N, other
+    vectors 0.1 N, drawn on the module's device."""
+    dev = next(module.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.normal_(generator=g)
+            if p.ndim >= 2:
+                p.div_(math.sqrt(p[0].numel()))
+            elif name.endswith("weight"):
+                p.mul_(0.1).add_(1.0)
+            else:
+                p.mul_(0.1)
+    return module
+
+
+def random_pipeline(model_cfg, pipe_cfg, device, seed: int = 1, unet=None):
+    """An I2VAdapterPipeline on ``device`` with seeded random weights and a
+    miniature tokenizer padded to the text encoder's context length."""
+    from i2v_adapter_tpu_torch.models import (
+        AutoencoderKL,
+        CLIPTextEncoder,
+        CLIPVisionEncoder,
+        VideoUNet,
+    )
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+    from i2v_adapter_tpu_torch.utils.tokenizer import make_test_tokenizer
+
+    modules = {
+        "unet": unet if unet is not None else randomize_(VideoUNet(model_cfg.unet, device=device), seed),
+        "vae": randomize_(AutoencoderKL(model_cfg.vae, device=device), seed + 2),
+        "text_encoder": randomize_(CLIPTextEncoder(model_cfg.text_encoder, device=device), seed + 3),
+        "image_encoder": randomize_(CLIPVisionEncoder(model_cfg.image_encoder, device=device), seed + 4),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = make_test_tokenizer(tmp)
+    tok.context_length = model_cfg.text_encoder.max_position_embeddings
+    return I2VAdapterPipeline(model_cfg, modules, tok, pipe_cfg, device=device)
