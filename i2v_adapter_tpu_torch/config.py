@@ -234,12 +234,109 @@ class PipelineConfig(_ConfigBase):
 
 
 @dataclass(frozen=True)
+class MeshConfig(_ConfigBase):
+    """Device mesh layout of the JAX package (axis sizes, -1 = the rest).
+    The port trains on one card: only the default layout is accepted."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    seq: int = 1
+
+
+@dataclass(frozen=True)
+class OptimizerConfig(_ConfigBase):
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "constant"  # constant|linear|cosine|constant_with_warmup
+    lr_warmup_steps: int = 500
+    # 'adamw' or 'adafactor' (the latter is not ported: make_optimizer raises)
+    optimizer: str = "adamw"
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    scale_lr: bool = False
+
+    def __post_init__(self):
+        if self.optimizer not in ("adamw", "adafactor"):
+            raise ValueError(f"unknown optimizer: {self.optimizer}")
+
+
+@dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+    """Training hyperparameters (same fields and defaults as the JAX
+    package's ``TrainConfig``)."""
+
+    # 'i2v': adapter (+ motion) finetune on clips; 't2i': whole-UNet
+    # single-frame finetune.
+    train_mode: str = "i2v"
+    resolution: int = 256
+    num_frames: int = 16
+    sample_stride: int = 4
+    train_batch_size: int = 8
+    gradient_accumulation_steps: int = 4
+    num_train_epochs: int = 10
+    max_train_steps: Optional[int] = None
+    seed: int = 0
+    # adapter to_q/to_out always train; motion modules only when set
+    update_motion_modules: bool = False
+    snr_gamma: Optional[float] = None
+    noise_offset: float = 0.0
+    input_perturbation: float = 0.0
+    prediction_type: Optional[str] = None
+    # classifier-free-guidance condition dropout probabilities
+    uncond_prob_t: float = 0.0
+    uncond_prob_i: float = 0.0
+    uncond_prob_ti: float = 0.0
+    # 'scaled' keeps sqrt(abar) x0 in frame 0; 'exact' restores the clean frame
+    first_frame_mode: str = "scaled"
+    gradient_checkpointing: bool = False
+    # VAE-encode the batch this many frames at a time (0 = all at once)
+    vae_encode_slice: int = 0
+    mixed_precision: str = "bfloat16"  # "none" | "bfloat16"
+    # storage dtype of the frozen weights; trainables stay fp32
+    freeze_dtype: str = "float32"  # "float32" | "bfloat16"
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    fsdp_frozen: str = "shard"  # "shard" | "replicate"
+    checkpoint_epoch: int = 2
+    checkpoints_total_limit: Optional[int] = None
+
+    def __post_init__(self):
+        if self.train_mode not in ("i2v", "t2i"):
+            raise ValueError(f"bad train_mode: {self.train_mode}")
+        if self.fsdp_frozen not in ("shard", "replicate"):
+            raise ValueError(f"bad fsdp_frozen: {self.fsdp_frozen}")
+        if self.first_frame_mode not in ("scaled", "exact"):
+            raise ValueError(f"bad first_frame_mode: {self.first_frame_mode}")
+        total = self.uncond_prob_t + self.uncond_prob_i + self.uncond_prob_ti
+        if total > 1.0:
+            raise ValueError(f"uncond probabilities sum to {total} > 1")
+        if self.mesh != MeshConfig():
+            raise NotImplementedError(
+                f"not ported yet: mesh={self.mesh} (ROADMAP: multi-GPU training)"
+            )
+
+
+@dataclass(frozen=True)
 class I2VModelConfig(_ConfigBase):
     unet: VideoUNetConfig = field(default_factory=VideoUNetConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     text_encoder: CLIPTextConfig = field(default_factory=CLIPTextConfig)
     image_encoder: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+
+
+def reference_train_config() -> TrainConfig:
+    """The reference training workload (the JAX bench's config 4): 2 clips
+    x 16 frames at 256 px, bf16 compute with fp32 trainables, frozen weights
+    stored in bf16, activation checkpointing, AdamW, no accumulation."""
+    return TrainConfig(train_batch_size=2, num_frames=16, resolution=256,
+                       gradient_accumulation_steps=1, mixed_precision="bfloat16",
+                       gradient_checkpointing=True, freeze_dtype="bfloat16")
 
 
 def tiny_test_config() -> I2VModelConfig:

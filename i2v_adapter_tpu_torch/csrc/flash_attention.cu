@@ -12,6 +12,10 @@
 // (the TPU kernel's static_max): rows whose scores all underflow go NaN.
 // For bf16 inputs p is rounded to bf16 before p.v, as the TPU kernel's
 // p.astype(v.dtype) does; the row sum uses the unrounded p.
+// When lse is given (training), each row also writes its log2-space
+// logsumexp, fp32 (Bq*H, Nq): static_max + log2(l) under the static offset,
+// m + log2(l) otherwise -- the statistic the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from.  Serving passes no lse.
 //
 // What bounds it here: operations.  At the 512px sites (N = 4096/1024/256,
 // D = 40/80/160, 8 heads, 32 frame-evals) a call does 4*B*H*N*N*D flops on
@@ -40,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -50,7 +56,8 @@ constexpr float NEG_BIG = -1e30f;
 template <int DT>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int nq, int nk, int heads, int d, int G, int kv_repeat,
+    float* __restrict__ o, float* __restrict__ lse, int nq, int nk, int heads, int d, int G,
+    int kv_repeat,
     long long sqb, long long sqn, long long sqh,
     long long skb, long long skn, long long skh,
     long long svb, long long svn, long long svh,
@@ -166,11 +173,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int c = 0; c < DT; ++c) {
       if (d0 + c < d) op[d0 + c] = acc[c] * inv;
     }
+    if (lse != nullptr && tid % G == 0) {
+      lse[(long long)bh * nq + row] = (use_static ? static_max : m) + log2f(l);
+    }
   }
 }
 
 template <int DT>
-int launch(const void* q, const void* k, const void* v, void* o, int bq, int nq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
            int nk, int heads, int d, int G, int kv_repeat, const long long* st,
            float scale_log2, float static_max, cudaStream_t stream) {
   const int rows = THREADS / G;
@@ -182,22 +192,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int bq, int nq,
   dim3 grid((nq + rows - 1) / rows, bq * heads);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), nq, nk, heads, d, G, kv_repeat,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, nq, nk, heads, d, G, kv_repeat,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       scale_log2, static_max);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int dt, const void* q, const void* k, const void* v, void* o, int bq,
+int dispatch(int dt, const void* q, const void* k, const void* v, void* o, float* lse, int bq,
              int nq, int nk, int heads, int d, int G, int kv_repeat,
              const long long* st, float scale_log2, float static_max,
              cudaStream_t stream) {
   switch (dt) {
-    case 8: return launch<8>(q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
-    case 16: return launch<16>(q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
-    case 24: return launch<24>(q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
-    case 32: return launch<32>(q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
-    case 40: return launch<40>(q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
+    case 8: return launch<8>(q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
+    case 16: return launch<16>(q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
+    case 24: return launch<24>(q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
+    case 32: return launch<32>(q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
+    case 40: return launch<40>(q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, stream);
     default: return -2;
   }
 }
@@ -218,28 +228,11 @@ int dispatch(int dt, const void* q, const void* k, const void* v, void* o, int b
 
 constexpr int MMA_BKV = 64;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int DP, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int nq, int nk, int heads, int d, int kv_repeat,
+    float* __restrict__ lse, int nq, int nk, int heads, int d, int kv_repeat,
     long long sqb, long long sqn, long long sqh,
     long long skb, long long skn, long long skh,
     long long svb, long long svn, long long svh,
@@ -385,6 +378,9 @@ __global__ void __launch_bounds__(WARPS * 32) flash_fwd_mma_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + r0 + 8 * r;
     if (row < nq) {
+      if (lse != nullptr && t == 0) {
+        lse[(long long)bh * nq + row] = (use_static ? static_max : m[r]) + log2f(l[r]);
+      }
       const float inv = 1.f / l[r];  // l == 0 (all scores underflowed) gives NaN rows
       __nv_bfloat16* op = o + bq * sob + (long long)row * son + h * soh;
 #pragma unroll
@@ -400,7 +396,7 @@ __global__ void __launch_bounds__(WARPS * 32) flash_fwd_mma_kernel(
 }
 
 template <int DP>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int bq, int nq,
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
                int nk, int heads, int d, int kv_repeat, const long long* st,
                float scale_log2, float static_max, cudaStream_t stream) {
   // 8 warps (128 query rows) halve the K/V re-reads where registers allow
@@ -415,24 +411,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int bq, int
   dim3 grid((nq + BQ - 1) / BQ, bq * heads);
   kern<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq, nk, heads, d,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, nq, nk, heads, d,
       kv_repeat, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], scale_log2, static_max);
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* o, int bq, int nq,
+int dispatch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
                  int nk, int heads, int d, int kv_repeat, const long long* st,
                  float scale_log2, float static_max, cudaStream_t stream) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch_mma<16>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 32: return launch_mma<32>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 48: return launch_mma<48>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 64: return launch_mma<64>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 80: return launch_mma<80>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 96: return launch_mma<96>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 128: return launch_mma<128>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 160: return launch_mma<160>(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 16: return launch_mma<16>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 32: return launch_mma<32>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 48: return launch_mma<48>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 64: return launch_mma<64>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 80: return launch_mma<80>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 96: return launch_mma<96>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 128: return launch_mma<128>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 160: return launch_mma<160>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
     default: return -2;
   }
 }
@@ -455,12 +451,13 @@ bool mma_ok(const void* q, const void* k, const void* v, const void* o, int d,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides (in elements) of q, k, v, o in
+// dtype: 0 = float32, 1 = bfloat16.  lse: null, or fp32 (bq*heads, nq)
+// contiguous for the log2 logsumexp.  strides (in elements) of q, k, v, o in
 // (batch, token, head) order; the head dim is contiguous.  Returns 0 or the
 // CUDA error code of the launch; -1 bad dtype, -2 unsupported head dim,
 // -3 grid too large, -4 bf16 rows the tensor-core path cannot read.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int bq,
+    const void* q, const void* k, const void* v, void* o, void* lse_out, int dtype, int bq,
     int nq, int nk, int heads, int d, int kv_repeat,
     long long sqb, long long sqn, long long sqh,
     long long skb, long long skn, long long skh,
@@ -474,11 +471,12 @@ extern "C" int flash_attention_fwd(
   if ((long long)bq * heads > 65535) return -3;
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0)
-    return dispatch(dt, q, k, v, o, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, s);
+    return dispatch(dt, q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, s);
   if (dtype == 1)
     return mma_ok(q, k, v, o, d, st)
-        ? dispatch_mma(q, k, v, o, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, s)
+        ? dispatch_mma(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, s)
         : -4;
   return -1;
 }

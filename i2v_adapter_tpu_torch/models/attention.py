@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from i2v_adapter_tpu_torch.models.layers import ConvNHWC, GroupNorm
+from i2v_adapter_tpu_torch.models.layers import ConvNHWC, GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -41,13 +41,13 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.attn_impl, self.static_max = attn_impl, static_max
         self.ip_num_tokens, self.ip_scale = ip_num_tokens, ip_scale
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
         if ip_num_tokens > 0:
-            self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
-            self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+            self.to_k_ip = Linear(context_dim, inner, bias=False)
+            self.to_v_ip = Linear(context_dim, inner, bias=False)
+        self.to_out = Linear(inner, query_dim)
 
     def _attend(self, q, k, v, kv_repeat):
         split = lambda x: x.view(x.shape[0], x.shape[1], self.heads, self.dim_head)
@@ -79,8 +79,8 @@ class FeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         self.gelu_tanh = gelu_tanh
-        self.proj = nn.Linear(dim, inner * 2)
-        self.proj_out = nn.Linear(inner, dim)
+        self.proj = Linear(dim, inner * 2)
+        self.proj_out = Linear(inner, dim)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -108,16 +108,16 @@ class TransformerBlock(nn.Module):
     ):
         super().__init__()
         kw = dict(heads=heads, dim_head=dim_head, attn_impl=attn_impl, static_max=static_max)
-        self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm1 = LayerNorm(dim, eps=norm_eps)
         self.attn1 = Attention(dim, **kw)
         self.use_i2v_adapter = use_i2v_adapter
         if use_i2v_adapter:
             self.i2v_adapter = Attention(dim, **kw)
-        self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm2 = LayerNorm(dim, eps=norm_eps)
         self.attn2 = Attention(
             dim, context_dim=context_dim, ip_num_tokens=ip_num_tokens, ip_scale=ip_scale, **kw
         )
-        self.norm3 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm3 = LayerNorm(dim, eps=norm_eps)
         self.ff = FeedForward(dim, gelu_tanh=gelu_tanh)
 
     def forward(self, hidden_states, encoder_hidden_states, *,
@@ -164,8 +164,8 @@ class SpatialTransformer(nn.Module):
         self.num_layers = num_layers
         self.norm = GroupNorm(groups, in_channels, 1e-6)
         if use_linear_projection:
-            self.proj_in = nn.Linear(in_channels, inner)
-            self.proj_out = nn.Linear(inner, in_channels)
+            self.proj_in = Linear(in_channels, inner)
+            self.proj_out = Linear(inner, in_channels)
         else:
             self.proj_in = ConvNHWC(in_channels, inner, 1)
             self.proj_out = ConvNHWC(inner, in_channels, 1)

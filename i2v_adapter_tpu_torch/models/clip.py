@@ -5,6 +5,7 @@ a linear projection for vision."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.config import CLIPTextConfig, CLIPVisionConfig
 from i2v_adapter_tpu_torch.device import DeviceLike, resolve_device
-from i2v_adapter_tpu_torch.models.layers import ConvNHWC
+from i2v_adapter_tpu_torch.models.layers import ConvNHWC, LayerNorm, Linear
 
 
 def quick_gelu(x):
@@ -26,10 +27,10 @@ class CLIPAttention(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(hidden, hidden)
-        self.k_proj = nn.Linear(hidden, hidden)
-        self.v_proj = nn.Linear(hidden, hidden)
-        self.out_proj = nn.Linear(hidden, hidden)
+        self.q_proj = Linear(hidden, hidden)
+        self.k_proj = Linear(hidden, hidden)
+        self.v_proj = Linear(hidden, hidden)
+        self.out_proj = Linear(hidden, hidden)
 
     def forward(self, x, mask=None):
         b, n, c = x.shape
@@ -49,8 +50,8 @@ class CLIPMLP(nn.Module):
     def __init__(self, hidden: int, intermediate: int, act: str):
         super().__init__()
         self.act = _ACTS[act]
-        self.fc1 = nn.Linear(hidden, intermediate)
-        self.fc2 = nn.Linear(intermediate, hidden)
+        self.fc1 = Linear(hidden, intermediate)
+        self.fc2 = Linear(intermediate, hidden)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
@@ -59,9 +60,9 @@ class CLIPMLP(nn.Module):
 class CLIPEncoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, intermediate: int, act: str, eps: float):
         super().__init__()
-        self.layer_norm1 = nn.LayerNorm(hidden, eps=eps)
+        self.layer_norm1 = LayerNorm(hidden, eps=eps)
         self.self_attn = CLIPAttention(hidden, heads)
-        self.layer_norm2 = nn.LayerNorm(hidden, eps=eps)
+        self.layer_norm2 = LayerNorm(hidden, eps=eps)
         self.mlp = CLIPMLP(hidden, intermediate, act)
 
     def forward(self, x, mask=None):
@@ -91,12 +92,15 @@ class CLIPTextEncoder(nn.Module):
             )
             for i, layer in enumerate(_layers(cfg)):
                 self.add_module(f"layers_{i}", layer)
-            self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+            self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids, clip_skip: int = 0):
+    def forward(self, input_ids, clip_skip: int = 0, dtype: Optional[torch.dtype] = None):
+        """``dtype`` is the compute dtype (default: the embeddings' storage
+        dtype)."""
         cfg = self.config
         n = input_ids.shape[1]
         x = self.token_embedding(input_ids.long()) + self.position_embedding[None, :n]
+        x = x.to(dtype or x.dtype)
         mask = torch.triu(
             torch.full((n, n), -1e9, dtype=torch.float32, device=x.device), diagonal=1
         )[None, None]
@@ -119,20 +123,21 @@ class CLIPVisionEncoder(nn.Module):
             )
             self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
             self.position_embedding = nn.Parameter(torch.zeros(n_patches + 1, cfg.hidden_size))
-            self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+            self.pre_layrnorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
             for i, layer in enumerate(_layers(cfg)):
                 self.add_module(f"layers_{i}", layer)
-            self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-            self.visual_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+            self.post_layernorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+            self.visual_projection = Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, pixel_values):
+    def forward(self, pixel_values, dtype: Optional[torch.dtype] = None):
+        """``dtype`` is the compute dtype (default: the storage dtype)."""
         cfg = self.config
-        dtype = self.class_embedding.dtype
+        dtype = dtype or self.class_embedding.dtype
         patches = self.patch_embedding(pixel_values.to(dtype))
         b = patches.shape[0]
         patches = patches.reshape(b, -1, cfg.hidden_size)
-        cls = self.class_embedding.expand(b, 1, cfg.hidden_size)
-        x = torch.cat([cls, patches], dim=1) + self.position_embedding[None]
+        cls = self.class_embedding.to(dtype).expand(b, 1, cfg.hidden_size)
+        x = torch.cat([cls, patches], dim=1) + self.position_embedding[None].to(dtype)
         x = self.pre_layrnorm(x)
         for i in range(cfg.num_hidden_layers):
             x = getattr(self, f"layers_{i}")(x)

@@ -5,6 +5,13 @@ convolution hands ``F.conv2d`` the NCHW-shaped permuted view, which is a
 ``channels_last`` tensor, so no copy is made on either side of it.
 Submodule names follow the Flax module names (norm1/conv1/time_emb_proj/...)
 so that ``utils.convert.load_flax_params`` maps parameters mechanically.
+
+Compute dtype is apart from storage dtype, as Flax's ``dtype=`` makes it:
+``Linear``, ``LayerNorm`` and ``ConvNHWC`` cast their weights to the
+activation's dtype at use, so fp32 trainables and bf16 (or fp32) frozen
+weights run one bf16 forward and the gradient reaches the fp32 master
+through the cast.  ``GroupNorm`` computes in fp32 and returns the input's
+dtype.  Where the two dtypes agree the casts are no-ops.
 """
 
 from __future__ import annotations
@@ -40,15 +47,34 @@ class GroupNorm(nn.Module):
         return group_norm(x, self.num_groups, self.eps, self.weight, self.bias)
 
 
-class ConvNHWC(nn.Conv2d):
-    """``nn.Conv2d`` (OIHW weights) applied to channel-last activations."""
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype."""
 
     def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in the input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x.dtype),
+                            _cast(self.bias, x.dtype), self.eps)
+
+
+class ConvNHWC(nn.Conv2d):
+    """``nn.Conv2d`` (OIHW weights) applied to channel-last activations, in
+    the input's dtype."""
+
+    def forward(self, x):
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x.dtype)
         if self.kernel_size == (1, 1) and self.stride == (1, 1):
-            return F.linear(x, self.weight.flatten(1), self.bias)
-        y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, self.padding
-        )
+            return F.linear(x, w.flatten(1), b)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -79,8 +105,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample):
         return self.linear_2(F.silu(self.linear_1(sample)))
@@ -101,7 +127,7 @@ class ResnetBlock2D(nn.Module):
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = ConvNHWC(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
-            self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+            self.time_emb_proj = Linear(temb_channels, out_channels)
         self.norm2 = GroupNorm(groups, out_channels, eps)
         self.conv2 = ConvNHWC(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from i2v_adapter_tpu_torch.models.attention import FeedForward
-from i2v_adapter_tpu_torch.models.layers import GroupNorm
+from i2v_adapter_tpu_torch.models.layers import GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import temporal_attention
 
 
@@ -38,10 +38,10 @@ class TemporalSelfAttention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.attn_impl = heads, attn_impl
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(dim, inner, bias=False)
+        self.to_v = Linear(dim, inner, bias=False)
+        self.to_out = Linear(inner, dim)
 
     def forward(self, x):
         out = temporal_attention(
@@ -58,11 +58,11 @@ class TemporalBlock(nn.Module):
                  norm_eps: float = 1e-5, gelu_tanh: bool = False, attn_impl: str = "auto"):
         super().__init__()
         self.max_seq_length = max_seq_length
-        self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm1 = LayerNorm(dim, eps=norm_eps)
         self.attn1 = TemporalSelfAttention(dim, heads, dim_head, attn_impl)
-        self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm2 = LayerNorm(dim, eps=norm_eps)
         self.attn2 = TemporalSelfAttention(dim, heads, dim_head, attn_impl)
-        self.norm3 = nn.LayerNorm(dim, eps=norm_eps)
+        self.norm3 = LayerNorm(dim, eps=norm_eps)
         self.ff = FeedForward(dim, gelu_tanh=gelu_tanh)
 
     def forward(self, x):
@@ -87,13 +87,13 @@ class TemporalTransformer(nn.Module):
         inner = heads * dim_head
         self.num_layers = num_layers
         self.norm = GroupNorm(groups, in_channels, 1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = Linear(in_channels, inner)
         for i in range(num_layers):
             self.add_module(f"transformer_blocks_{i}", TemporalBlock(
                 inner, heads, dim_head, max_seq_length=max_seq_length,
                 gelu_tanh=gelu_tanh, attn_impl=attn_impl,
             ))
-        self.proj_out = nn.Linear(inner, in_channels)
+        self.proj_out = Linear(inner, in_channels)
 
     def forward(self, x, *, num_frames: int):
         bf, h, w, c = x.shape

@@ -9,11 +9,12 @@ clips major and frames minor; the public input is ``(B, F, H, W, C)``.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from i2v_adapter_tpu_torch.config import VideoUNetConfig
 from i2v_adapter_tpu_torch.device import DeviceLike, resolve_device
@@ -22,6 +23,8 @@ from i2v_adapter_tpu_torch.models.layers import (
     ConvNHWC,
     Downsample2D,
     GroupNorm,
+    LayerNorm,
+    Linear,
     ResnetBlock2D,
     TimestepEmbedding,
     Upsample2D,
@@ -41,8 +44,6 @@ def _check_ported(cfg: VideoUNetConfig) -> None:
         missing.append(f"ip_variant={cfg.ip_variant!r} (ROADMAP: plus/full_face IP heads)")
     if cfg.freeu is not None:
         missing.append("freeu (ROADMAP: FreeU)")
-    if cfg.remat:
-        missing.append("remat (ROADMAP: training)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -53,8 +54,8 @@ class ImageProjection(nn.Module):
     def __init__(self, image_embed_dim: int, num_tokens: int, cross_attention_dim: int):
         super().__init__()
         self.num_tokens, self.cross_attention_dim = num_tokens, cross_attention_dim
-        self.proj = nn.Linear(image_embed_dim, num_tokens * cross_attention_dim)
-        self.norm = nn.LayerNorm(cross_attention_dim, eps=1e-6)
+        self.proj = Linear(image_embed_dim, num_tokens * cross_attention_dim)
+        self.norm = LayerNorm(cross_attention_dim, eps=1e-6)
 
     def forward(self, image_embeds):
         x = self.proj(image_embeds)
@@ -181,7 +182,11 @@ class VideoUNet(nn.Module):
     forward(sample (B, F, H, W, C_in), timestep scalar or (B,),
     encoder_hidden_states (B, L, C_text), image_embeds (B, D_img)) ->
     (B, F, H, W, C_out).  Parameters are created in fp32 on ``device`` (the
-    GPU unless ``device="cpu"``); callers cast with ``.to``."""
+    GPU unless ``device="cpu"``); callers cast with ``.to``.  The compute
+    dtype is ``dtype`` when given, else the storage dtype of ``conv_in``.
+    With ``config.remat`` each Down/Mid/Up block runs under activation
+    checkpointing while gradients are recorded (the blocks the JAX package
+    wraps in ``nn.remat``)."""
 
     def __init__(self, config: VideoUNetConfig, device: DeviceLike = None):
         super().__init__()
@@ -228,11 +233,16 @@ class VideoUNet(nn.Module):
             if isinstance(m, (Attention, TemporalSelfAttention)):
                 m.attn_impl = impl
 
+    def _block(self, block: nn.Module, *args, **kwargs):
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
     def forward(self, sample, timestep, encoder_hidden_states, image_embeds=None, *,
-                enable_cross_frame_attn: bool = False):
+                enable_cross_frame_attn: bool = False, dtype: Optional[torch.dtype] = None):
         cfg = self.config
         b, f, h, w, c = sample.shape
-        dtype = self.conv_in.weight.dtype
+        dtype = dtype or self.conv_in.weight.dtype
         dev = sample.device
         ts = torch.as_tensor(timestep, dtype=torch.float32, device=dev).reshape(-1).expand(b)
         emb = self.time_embedding(timestep_embedding(ts, cfg.block_out_channels[0]).to(dtype))
@@ -250,12 +260,12 @@ class VideoUNet(nn.Module):
         block = dict(cross_frame=enable_cross_frame_attn, num_frames=f)
         skips = [x]
         for i in range(cfg.num_blocks):
-            x, block_skips = getattr(self, f"down_blocks_{i}")(x, emb, ctx, **block)
+            x, block_skips = self._block(getattr(self, f"down_blocks_{i}"), x, emb, ctx, **block)
             skips.extend(block_skips)
-        x = self.mid_block(x, emb, ctx, **block)
+        x = self._block(self.mid_block, x, emb, ctx, **block)
         for i in range(cfg.num_blocks):
             num_layers = cfg.layers_per_block + 1
             block_skips, skips = skips[-num_layers:], skips[:-num_layers]
-            x = getattr(self, f"up_blocks_{i}")(x, block_skips, emb, ctx, **block)
+            x = self._block(getattr(self, f"up_blocks_{i}"), x, block_skips, emb, ctx, **block)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.reshape(b, f, h, w, cfg.out_channels)

@@ -15,6 +15,7 @@ from i2v_adapter_tpu_torch.models.layers import (
     ConvNHWC,
     Downsample2D,
     GroupNorm,
+    Linear,
     ResnetBlock2D,
     Upsample2D,
 )
@@ -27,10 +28,10 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
         self.group_norm = GroupNorm(groups, channels, 1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.Linear(channels, channels)
+        self.to_q = Linear(channels, channels)
+        self.to_k = Linear(channels, channels)
+        self.to_v = Linear(channels, channels)
+        self.to_out = Linear(channels, channels)
 
     def forward(self, x):
         b, h, w, c = x.shape
@@ -129,17 +130,36 @@ class AutoencoderKL(nn.Module):
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def encode(self, x, noise: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               slice_size: int = 0) -> torch.Tensor:
         """Posterior sample ``mean + std * noise`` with the given noise, or
         noise drawn from ``generator``; the mean when neither is given.  Not
-        yet multiplied by ``scaling_factor``."""
+        yet multiplied by ``scaling_factor``.
+
+        ``slice_size`` > 0 dividing the batch encodes that many images at a
+        time (the training step's ``vae_encode_slice``), which bounds the
+        encoder's peak activation memory; slice i takes rows
+        ``[i*slice_size, (i+1)*slice_size)`` of ``noise``."""
+        n = x.shape[0]
+        if noise is None and generator is not None:
+            noise = torch.randn(self.latent_shape(x.shape), generator=generator,
+                                device=x.device, dtype=torch.float32)
+        if slice_size > 0 and n % slice_size == 0 and n > slice_size:
+            return torch.cat([
+                self.encode(x[i:i + slice_size],
+                            None if noise is None else noise[i:i + slice_size])
+                for i in range(0, n, slice_size)
+            ])
         mean, logvar = self.encode_moments(x)
-        if noise is None and generator is None:
-            return mean
         if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                                dtype=torch.float32)
+            return mean
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+    def latent_shape(self, x_shape) -> Tuple[int, ...]:
+        """Shape of ``encode``'s output for an input of shape ``x_shape``."""
+        n, h, w, _ = x_shape
+        s = self.config.spatial_scale_factor
+        return (n, h // s, w // s, self.config.latent_channels)
 
     def decode(self, z) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))

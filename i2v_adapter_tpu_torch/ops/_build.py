@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` into ``i2v_adapter_tpu_torch/build/``
-(git-ignored) at first use.  Libraries are keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads at once.
+(git-ignored) at first use.  Libraries are keyed by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads at once.
 Sources that need building are compiled in parallel, one nvcc each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,7 +22,7 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("flash_attention", "temporal_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,8 +44,11 @@ def nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.join(BUILD, f"{name}-{digest}")
     return src, stem + ".so", stem + ".log"
 

@@ -64,6 +64,20 @@ def add_noise(schedule: NoiseSchedule, sample, noise, timesteps) -> torch.Tensor
     return sqrt_abar * sample + sqrt_one_minus * noise
 
 
+def get_velocity(schedule: NoiseSchedule, sample, noise, timesteps) -> torch.Tensor:
+    """v-prediction target: sqrt(abar) eps - sqrt(1 - abar) x_0."""
+    abar = _lookup(schedule.alphas_cumprod, timesteps, sample.device).to(sample.dtype)
+    sqrt_abar = _broadcast(torch.sqrt(abar), sample.ndim)
+    sqrt_one_minus = _broadcast(torch.sqrt(1.0 - abar), sample.ndim)
+    return sqrt_abar * noise - sqrt_one_minus * sample
+
+
+def compute_snr(schedule: NoiseSchedule, timesteps) -> torch.Tensor:
+    """Signal-to-noise ratio abar / (1 - abar) per timestep (SNR-gamma loss)."""
+    abar = _lookup(schedule.alphas_cumprod, timesteps, schedule.alphas_cumprod.device)
+    return abar / (1.0 - abar)
+
+
 def predict_x0_and_eps(schedule: NoiseSchedule, model_output, sample, alpha_prod_t):
     """(x0_hat, eps_hat) under the configured prediction type."""
     beta_prod_t = 1.0 - alpha_prod_t

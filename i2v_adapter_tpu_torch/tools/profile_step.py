@@ -1,17 +1,24 @@
-"""Where the time goes: a torch.profiler breakdown of the serving path.
+"""Where the time goes: a torch.profiler breakdown of the serving path or
+of one training step.
 
-    python -m i2v_adapter_tpu_torch.tools.profile_step
+    python -m i2v_adapter_tpu_torch.tools.profile_step           # serving
+    python -m i2v_adapter_tpu_torch.tools.profile_step --train   # training
 
-Builds the full-width (SD1.5) pipeline with seeded random weights on the
-GPU, serves one warm-up request, then profiles the three parts of a request
-separately (prep, one denoise step, decode).  Prints one JSON line per part:
-wall ms (synchronised), summed kernel ms, the device's idle share
-(1 - kernel / wall), kernel time by category and the top kernels; then the
-nvidia-smi name and power limit.  Needs one CUDA card.
+Serving builds the full-width (SD1.5) pipeline with seeded random weights
+on the GPU, serves one warm-up request, then profiles the three parts of a
+request separately (prep, one denoise step, decode).  ``--train`` builds
+the reference training workload (``config.reference_train_config``: 2
+clips x 16 frames at 256 px, bf16, activation checkpointing) with seeded random
+weights and a synthetic batch, takes one warm-up step and profiles the
+next.  Prints one JSON line per part: wall ms (synchronised), summed kernel
+ms, the device's idle share (1 - kernel / wall), kernel time by category
+and the top kernels; then the nvidia-smi name and power limit.  Needs one
+CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -32,6 +39,8 @@ def _category(name: str) -> str:
         return "flash_attention (K1)"
     if "temporal_fwd" in n:
         return "temporal_attention_cs (K2)"
+    if "bwd_dq" in n or "bwd_dkv" in n:
+        return "flash_attention_bwd (K3)"
     if "conv" in n or "implicit" in n or "winograd" in n or "fprop" in n:
         return "convolution"
     if any(key in n for key in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90")):
@@ -53,13 +62,18 @@ def profile(fn, label: str, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kernels, launches, host = {}, 0, {}
     for evt in prof.key_averages():
-        # device-side events only: operator rows repeat their kernels' time
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+        if getattr(evt, "is_user_annotation", False):
             continue
-        if evt.self_device_time_total > 0:
+        if evt.device_type == DeviceType.CPU:
+            # host-side operators by their own (self) time
+            host[evt.key] = host.get(evt.key, 0.0) + evt.self_cpu_time_total / 1e3
+            continue
+        # device-side events only: operator rows repeat their kernels' time
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
+            launches += evt.count
     busy = sum(kernels.values())
     cats = {}
     for name, ms in kernels.items():
@@ -69,20 +83,52 @@ def profile(fn, label: str, top: int = 12) -> dict:
         "wall_ms": wall_ms,
         "kernel_ms": busy,
         "idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "device_kernels": launches,
         "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[k[:90], v] for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]],
+        "top_host_ops_self_ms": [[k[:60], v] for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:top]],
     }
 
 
-def main() -> int:
+def profile_train(dev) -> None:
+    from i2v_adapter_tpu_torch.config import I2VModelConfig, reference_train_config
+    from i2v_adapter_tpu_torch.training import make_train_step
+    from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
+
+    model_cfg, tcfg = I2VModelConfig(), reference_train_config()
+    state = random_train_state(model_cfg, tcfg, dev, seed=1)
+    batch = random_train_batch(model_cfg, tcfg, dev, seed=0)
+    step_fn = make_train_step(model_cfg, tcfg, device=dev)
+    step_fn(state, batch)  # warm-up: cuDNN plans, kernel builds
+    line = profile(lambda: step_fn(state, batch), "train_step")
+    line.update(frames=tcfg.num_frames, size=tcfg.resolution, batch=tcfg.train_batch_size,
+                remat=tcfg.gradient_checkpointing)
+    print(json.dumps(line), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true", help="profile one training step")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
+    dev = torch.device("cuda", 0)
+    if args.train:
+        profile_train(dev)
+    else:
+        profile_serving(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
+    return 0
+
+
+def profile_serving(dev) -> None:
     from i2v_adapter_tpu_torch.config import I2VModelConfig, PipelineConfig
     from i2v_adapter_tpu_torch.utils import image as image_utils
     from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 
-    dev = torch.device("cuda", 0)
     pcfg = PipelineConfig(num_frames=FRAMES, height=SIZE, width=SIZE,
                           num_inference_steps=STEPS, guidance_scale=7.5, blur_sigma=1.0,
                           dtype="bfloat16", int8_conv=False)
@@ -114,10 +160,6 @@ def main() -> int:
             line = profile(fn, label)
             line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True)
             print(json.dumps(line), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
-    return 0
 
 
 if __name__ == "__main__":

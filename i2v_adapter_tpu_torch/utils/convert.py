@@ -14,7 +14,7 @@ The port's parameter names follow the Flax module names, so a Flax leaf
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -75,3 +75,57 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
         for name, value in incoming.items():
             own[name].copy_(value.to(own[name].dtype))
     return module
+
+
+def merge_trees(frozen: Mapping[str, Any], trainable: Mapping[str, Any]) -> dict:
+    """Nested-dict union (the JAX ``merge_params``): trainable leaves win."""
+    out = {k: v for k, v in frozen.items()}
+    for key, value in trainable.items():
+        if isinstance(value, Mapping) and isinstance(out.get(key), Mapping):
+            out[key] = merge_trees(out[key], value)
+        else:
+            out[key] = value
+    return out
+
+
+def load_train_state(state, jax_state) -> Any:
+    """Fill a port ``TrainState``'s models from a JAX ``TrainState``: its
+    trainable + frozen UNet trees and its VAE / text / image trees (each
+    present on both sides).  Strict, like ``load_flax_params``; each
+    parameter keeps its own dtype."""
+    load_flax_params(state.unet, merge_trees(jax_state.frozen, jax_state.trainable))
+    for name in ("vae", "text_encoder", "image_encoder"):
+        tree, module = getattr(jax_state, name), getattr(state, name)
+        if (tree is None) != (module is None):
+            raise ValueError(f"{name}: present on one side only")
+        if module is not None:
+            load_flax_params(module, tree)
+    return state
+
+
+def to_flax_tree(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """The inverse of ``flax_to_state_dict``: ``params`` (default: all of
+    ``module``'s parameters), tensors keyed by ``module``'s dotted parameter
+    names and shaped like them, as a nested Flax-named tree of fp32 numpy
+    arrays in Flax layouts."""
+    modules = dict(module.named_modules())
+    if params is None:
+        params = dict(module.named_parameters())
+    tree: dict = {}
+    for name, tensor in params.items():
+        value = tensor.detach().float().cpu().numpy()
+        parent, _, leaf = name.rpartition(".")
+        owner = modules.get(parent)
+        if leaf == "weight" and isinstance(owner, nn.Conv2d):
+            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, value = "kernel", value.T
+        elif leaf == "weight" and isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        elif leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for part in parent.split(".") if parent else []:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree

@@ -48,3 +48,41 @@ def random_pipeline(model_cfg, pipe_cfg, device, seed: int = 1, unet=None):
         tok = make_test_tokenizer(tmp)
     tok.context_length = model_cfg.text_encoder.max_position_embeddings
     return I2VAdapterPipeline(model_cfg, modules, tok, pipe_cfg, device=device)
+
+
+def random_train_state(model_cfg, train_cfg, device, seed: int = 1, total_steps: int = 1000):
+    """A ``TrainState`` on ``device`` with seeded random weights at the
+    configuration's widths (UNet, VAE, CLIP text and, with the IP-Adapter,
+    CLIP vision)."""
+    from i2v_adapter_tpu_torch.models import (
+        AutoencoderKL,
+        CLIPTextEncoder,
+        CLIPVisionEncoder,
+        VideoUNet,
+    )
+    from i2v_adapter_tpu_torch.training import create_train_state
+
+    image = (randomize_(CLIPVisionEncoder(model_cfg.image_encoder, device=device), seed + 4)
+             if model_cfg.unet.use_ip_adapter else None)
+    return create_train_state(
+        randomize_(VideoUNet(model_cfg.unet, device=device), seed), train_cfg, total_steps,
+        vae=randomize_(AutoencoderKL(model_cfg.vae, device=device), seed + 2),
+        text_encoder=randomize_(CLIPTextEncoder(model_cfg.text_encoder, device=device), seed + 3),
+        image_encoder=image,
+    )
+
+
+def random_train_batch(model_cfg, train_cfg, device, seed: int = 0) -> dict:
+    """A synthetic batch at ``train_cfg``'s batch size, frames and
+    resolution: pixels uniform in [-1, 1], random token ids, a random CLIP
+    image."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, f, r = train_cfg.train_batch_size, train_cfg.num_frames, train_cfg.resolution
+    n_ctx, vocab = model_cfg.text_encoder.max_position_embeddings, model_cfg.text_encoder.vocab_size
+    s = model_cfg.image_encoder.image_size
+    return {
+        "pixel_values": torch.rand((b, f, r, r, 3), generator=g, device=device) * 2 - 1,
+        "text_ids": torch.randint(0, vocab, (b, n_ctx), generator=g, device=device),
+        "uncond_ids": torch.zeros((b, n_ctx), dtype=torch.long, device=device),
+        "clip_image": torch.randn((b, s, s, 3), generator=g, device=device),
+    }

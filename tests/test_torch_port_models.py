@@ -27,7 +27,7 @@ from i2v_adapter_tpu_torch.models.attention import SpatialTransformer
 from i2v_adapter_tpu_torch.models.layers import ResnetBlock2D, timestep_embedding
 from i2v_adapter_tpu_torch.models.temporal import TemporalTransformer
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
-from tests.torch_port_common import maxerr, random_params
+from tests.torch_port_common import maxerr, one_torch_thread, random_params  # noqa: F401
 
 TOL = 1e-4
 EXACT = dict(flash_attention=False, fast_gelu=False, flash_static_max=0.0)
@@ -134,7 +134,7 @@ def test_video_unet_full_eval(unet_params, fast_gelu):
 
 def test_video_unet_refuses_unported_options():
     for kw in (dict(int8_conv=True), dict(conv_impl="pallas"), dict(ip_variant="plus"),
-               dict(freeu=(0.9, 0.2, 1.2, 1.4)), dict(remat=True)):
+               dict(freeu=(0.9, 0.2, 1.2, 1.4))):
         with pytest.raises(NotImplementedError):
             VideoUNet(tiny_test_config().unet.replace(**kw), device=CPU)
 

@@ -23,7 +23,7 @@ from i2v_adapter_tpu_torch.config import SchedulerConfig
 from i2v_adapter_tpu_torch.ops import attention as A
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
-from tests.torch_port_common import maxerr
+from tests.torch_port_common import maxerr, one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

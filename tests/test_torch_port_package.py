@@ -28,6 +28,7 @@ from i2v_adapter_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, CLIPVis
 from i2v_adapter_tpu_torch.ops import attention as A
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "i2v_adapter_tpu_torch"
@@ -88,7 +89,7 @@ def test_port_uses_no_library_attention_or_compile():
 
 
 def test_kernel_sources_present():
-    for name in ("flash_attention", "temporal_attention"):
+    for name in ("flash_attention", "flash_attention_bwd", "temporal_attention"):
         src = (PKG / "csrc" / f"{name}.cu").read_text()
         assert "Replaces: i2v_adapter_tpu/ops/attention.py::" in src
         assert "What bounds it here" in src
@@ -128,7 +129,8 @@ def test_wrappers_take_plain_path_on_cpu():
     torch.testing.assert_close(got, want)
     x = torch.randn(2, 4, 130, 16, generator=g)
     torch.testing.assert_close(A.temporal_attention_cs(x, x, x, 2), A.temporal_attention_plain(x, x, x, 2))
-    assert A.launch_counts() == {"flash_attention": 0, "temporal_attention_cs": 0}
+    assert A.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
+                                 "temporal_attention_cs": 0}
 
 
 def _tiny_text_params():

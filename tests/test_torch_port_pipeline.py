@@ -28,7 +28,7 @@ from i2v_adapter_tpu.schedulers import make_schedule as j_make_schedule
 from i2v_adapter_tpu_torch.config import PipelineConfig, tiny_test_config
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.utils.tokenizer import make_test_tokenizer
-from tests.torch_port_common import maxerr, psnr, random_params
+from tests.torch_port_common import maxerr, one_torch_thread, psnr, random_params  # noqa: F401
 
 B, F, LAT, STEPS, GUIDANCE = 1, 2, 16, 2, 7.5
 EXACT = dict(flash_attention=False, fast_gelu=False, flash_static_max=0.0)

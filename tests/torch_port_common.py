@@ -4,10 +4,28 @@ Parameters come from the Flax module's own ``init`` signature (traced with
 ``jax.eval_shape``, so nothing is compiled) and are filled from a numpy
 seed: fan-in-scaled matrices, norm scales near 1, small vectors.  The same
 numpy tree feeds the JAX module and, through ``load_flax_params``, the port.
+
+Each port test file imports ``one_torch_thread``, which runs its tests on
+one torch intra-op thread.
 """
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU tests use tiny shapes, so one thread loses nothing
+    alone.  Under several pytest workers on a few cores, torch's default
+    pool (one thread per core in every worker) waits in its barriers for
+    threads that are descheduled: six workers running the remat test at
+    once took 128 s per test at the default count and 2.4 s at one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def maxerr(a, b) -> float:
