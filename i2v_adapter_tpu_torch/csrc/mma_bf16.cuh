@@ -1,5 +1,6 @@
 // bf16 tensor-core helpers shared by the port's kernels: one mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate) and its fragment loads/packs.
+// m16n8k16 (bf16 in, fp32 accumulate), its fragment loads/packs, ldmatrix
+// and 16-byte cp.async.
 // Fragment layouts (g = lane / 4, t = lane % 4): A (16x16, row) a0 =
 // A[g][2t..], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
 // B (16x8, col) read from [n][k] rows; C (16x8) c0,c1 = C[g][2t, 2t+1],
@@ -24,4 +25,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
+// addresses (16-byte aligned) of matrix j; r[j] = matrix j [g][2t, 2t+1],
+// the layout of an mma A fragment (matrices: rows 0-7 / 8-15 at k 0-7, then
+// at k 8-15) or of two B fragments read from [n][k] rows.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

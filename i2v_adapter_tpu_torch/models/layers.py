@@ -23,6 +23,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from i2v_adapter_tpu_torch.ops.conv3x3 import gn_silu_conv3x3
+from i2v_adapter_tpu_torch.ops.norms import fold_gn_affine
+
 
 def group_norm(x, num_groups: int, eps: float, weight, bias) -> torch.Tensor:
     """GroupNorm of a channel-last tensor ``(N, ..., C)``: statistics per
@@ -113,7 +116,15 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GroupNorm-SiLU-Conv x2 with timestep injection and 1x1 shortcut."""
+    """GroupNorm-SiLU-Conv x2 with timestep injection and 1x1 shortcut.
+
+    ``conv_impl``: ``'auto'`` and ``'xla'`` run each norm -> SiLU -> conv
+    stage as GroupNorm, SiLU and the library convolution; ``'pallas'`` (the
+    JAX package's name for its fused path) folds the norm's statistics and
+    affine into per-(sample, channel) vectors and runs the stage as one
+    kernel, ``ops.conv3x3.gn_silu_conv3x3``.  The parameters are the same
+    ``norm1/conv1/norm2/conv2`` under every impl, so state dicts and Flax
+    trees interchange."""
 
     def __init__(
         self,
@@ -122,8 +133,12 @@ class ResnetBlock2D(nn.Module):
         temb_channels: Optional[int] = None,
         groups: int = 32,
         eps: float = 1e-5,
+        conv_impl: str = "auto",
     ):
         super().__init__()
+        if conv_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown conv_impl: {conv_impl}")
+        self.conv_impl = conv_impl
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = ConvNHWC(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
@@ -135,13 +150,22 @@ class ResnetBlock2D(nn.Module):
         self.use_time_emb = temb_channels is not None
         self.use_shortcut = in_channels != out_channels
 
+    def _norm_silu_conv(self, norm: GroupNorm, conv: ConvNHWC, h):
+        if self.conv_impl != "pallas":
+            return conv(F.silu(norm(h)))
+        a, s = fold_gn_affine(h, norm.num_groups, norm.eps, norm.weight, norm.bias)
+        # an HWIO view of the OIHW parameter: the kernel reads that storage
+        # as it is (see ops/conv3x3.py), so nothing is repacked per call
+        kernel = conv.weight.to(h.dtype).permute(2, 3, 1, 0)
+        return gn_silu_conv3x3(h, a, s, kernel, conv.bias)
+
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self._norm_silu_conv(self.norm1, self.conv1, x)
         if self.use_time_emb:
             if temb is None:
                 raise ValueError("temb required")
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._norm_silu_conv(self.norm2, self.conv2, h)
         if self.use_shortcut:
             x = self.conv_shortcut(x)
         return x + h

@@ -38,8 +38,6 @@ def _check_ported(cfg: VideoUNetConfig) -> None:
     missing = []
     if cfg.int8_conv:
         missing.append("int8_conv (ROADMAP: int8 serving convs)")
-    if cfg.conv_impl == "pallas":
-        missing.append("conv_impl='pallas' (ROADMAP: K4 fused GN+SiLU+conv)")
     if cfg.ip_variant != "standard":
         missing.append(f"ip_variant={cfg.ip_variant!r} (ROADMAP: plus/full_face IP heads)")
     if cfg.freeu is not None:
@@ -93,7 +91,7 @@ class DownBlock(nn.Module):
         for i in range(num_layers):
             self.add_module(f"resnets_{i}", ResnetBlock2D(
                 in_channels if i == 0 else out_channels, out_channels, cfg.time_embed_dim,
-                cfg.norm_num_groups, cfg.norm_eps,
+                cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl,
             ))
             if has_attention:
                 self.add_module(f"attentions_{i}", _spatial(cfg, out_channels, attn_impl))
@@ -131,6 +129,7 @@ class UpBlock(nn.Module):
         for i, cin in enumerate(resnet_in):
             self.add_module(f"resnets_{i}", ResnetBlock2D(
                 cin, out_channels, cfg.time_embed_dim, cfg.norm_num_groups, cfg.norm_eps,
+                cfg.conv_impl,
             ))
             if has_attention:
                 self.add_module(f"attentions_{i}", _spatial(cfg, out_channels, attn_impl))
@@ -161,12 +160,12 @@ class MidBlock(nn.Module):
         super().__init__()
         self.use_motion = cfg.use_motion_modules and cfg.use_motion_mid_block
         self.resnets_0 = ResnetBlock2D(channels, channels, cfg.time_embed_dim,
-                                       cfg.norm_num_groups, cfg.norm_eps)
+                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl)
         self.attentions_0 = _spatial(cfg, channels, attn_impl)
         if self.use_motion:
             self.motion_modules_0 = _motion(cfg, channels, attn_impl)
         self.resnets_1 = ResnetBlock2D(channels, channels, cfg.time_embed_dim,
-                                       cfg.norm_num_groups, cfg.norm_eps)
+                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl)
 
     def forward(self, x, temb, ctx, cross_frame: bool, num_frames: int):
         x = self.resnets_0(x, temb)

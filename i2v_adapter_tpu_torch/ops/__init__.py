@@ -1,1 +1,2 @@
-"""Ops of the port: attention (plain + CUDA kernels) and the prior's blur."""
+"""Ops of the port: attention, the fused norm + SiLU + 3x3 conv and the int8
+matmul (plain versions + CUDA kernels), GroupNorm statistics, the prior's blur."""

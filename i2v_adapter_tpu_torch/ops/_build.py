@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "temporal_attention", "conv3x3",
+           "int8_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -90,3 +91,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build([name])[name]["path"])
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, fn: str, argtypes):
+    """The C entry point ``fn`` of ``csrc/<name>.cu`` with its argument
+    types set (ctypes would otherwise pass each pointer as a 32-bit int);
+    every entry point returns an int."""
+    func = getattr(load(name), fn)
+    if func.argtypes is None:
+        func.argtypes = argtypes
+        func.restype = ctypes.c_int
+    return func

@@ -10,6 +10,13 @@ for K3, ``temporal_attention_cs`` for K2) launches its CUDA kernel on a CUDA
 tensor or raises; a CPU tensor takes the plain version of the same function.
 ``launches`` on the wrapper counts kernel launches and nothing else.
 
+The JAX package has two more attention kernels that compute the same
+functions on other memory layouts: its row-major flash kernel (K5) is
+``flash_attention(transposed_io=False)`` here, one CUDA kernel reading both
+layouts through strides; its all-of-C temporal kernel (K6), which its forced
+``pallas`` impl also runs below 128 tokens, is ``temporal_attention(impl=
+"kernel")``, K2's own ``(B, F, S, C)`` layout at every S.
+
 Gradients: ``FlashAttentionFn`` and ``TemporalAttentionFn`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom_vjp
 wrappers.  The flash backward runs K3 from the forward's saved log2
@@ -118,6 +125,12 @@ def xla_attention(q, k, v, *, kv_repeat: int = 1, scale: Optional[float] = None)
     return _plain_attention(q, k, v, kv_repeat, scale, 0.0)
 
 
+def _row_major(t: torch.Tensor) -> torch.Tensor:
+    """``t (B, N, H, D)`` as a view of ``(B, H, N, D)``-contiguous storage
+    (no copy when it is stored so already)."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 _FLASH_ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
@@ -126,15 +139,6 @@ _FLASH_BWD_ARGTYPES = (
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 )
-
-
-def _lib(name: str, fn: str, argtypes):
-    lib = _build.load(name)
-    entry = getattr(lib, fn)
-    if entry.argtypes is None:
-        entry.argtypes = argtypes
-        entry.restype = ctypes.c_int
-    return entry
 
 
 def flash_attention(
@@ -146,8 +150,17 @@ def flash_attention(
     scale: Optional[float] = None,
     static_max: float = 0.0,
     with_lse: bool = False,
+    transposed_io: bool = True,
 ):
     """K1: fused attention, read through the strides of (B, N, H, D) views.
+
+    ``transposed_io=False`` is the counterpart of the JAX package's
+    row-major kernel (K5, ``_flash_kernel``): the same function on operands
+    whose storage is ``(B, H, N, D)``-contiguous, the row-major
+    ``(B*H, N, D)`` that kernel reads.  Operands that are not stored so are
+    relaid first; the one CUDA kernel then runs on the ``(B, N, H, D)``
+    views of that storage, and the result comes back as such a view.  The
+    default leaves the operands as the projections give them.
 
     ``static_max`` != 0 is the log2-space offset used in place of the
     running max (``VideoUNetConfig.flash_static_max``).  ``with_lse`` also
@@ -162,14 +175,19 @@ def flash_attention(
         raise ValueError(f"batch mismatch: {bq} != {bkv} * {kv_repeat}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if not transposed_io:
+        q, k, v = (_row_major(t) for t in (q, k, v))
     if q.device.type == "cpu":
         return _plain_attention(q, k, v, kv_repeat, scale, static_max, with_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     code = _check_kernel_inputs("flash_attention", q, k, v)
-    o = torch.empty((bq, nq, h, d), dtype=q.dtype, device=q.device)
+    if transposed_io:
+        o = torch.empty((bq, nq, h, d), dtype=q.dtype, device=q.device)
+    else:
+        o = torch.empty((bq, h, nq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((bq * h, nq), dtype=torch.float32, device=q.device) if with_lse else None
-    err = _lib("flash_attention", "flash_attention_fwd", _FLASH_ARGTYPES)(
+    err = _build.entry("flash_attention", "flash_attention_fwd", _FLASH_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None, code,
         bq, nq, nk, h, d, kv_repeat,
@@ -247,7 +265,7 @@ def flash_attention_bwd(q, k, v, o, g, lse, *, kv_repeat: int = 1,
     dq = torch.empty((bq, nq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((bkv, nk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    err = _lib("flash_attention_bwd", "flash_attention_bwd", _FLASH_BWD_ARGTYPES)(
+    err = _build.entry("flash_attention_bwd", "flash_attention_bwd", _FLASH_BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code,
         bq, nq, nk, h, d, kv_repeat,
@@ -375,7 +393,7 @@ def temporal_attention_cs(q, k, v, heads: int) -> torch.Tensor:
         raise ValueError(f"temporal_attention_cs: the kernel needs an even head dim, got {c // heads}")
     code = _check_kernel_inputs("temporal_attention_cs", q, k, v)
     o = torch.empty((b, fq, s, c), dtype=q.dtype, device=q.device)
-    err = _lib("temporal_attention", "temporal_attention_fwd", _TEMPORAL_ARGTYPES)(
+    err = _build.entry("temporal_attention", "temporal_attention_fwd", _TEMPORAL_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
         b, fq, f, s, c, heads,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],

@@ -3,6 +3,11 @@ of one training step.
 
     python -m i2v_adapter_tpu_torch.tools.profile_step           # serving
     python -m i2v_adapter_tpu_torch.tools.profile_step --train   # training
+    python -m i2v_adapter_tpu_torch.tools.profile_step --conv-impl pallas [--train]
+
+``--conv-impl`` sets ``VideoUNetConfig.conv_impl`` of the profiled model
+(``pallas``: every resnet stage through the fused GroupNorm-apply + SiLU +
+3x3 conv kernel K4).
 
 Serving builds the full-width (SD1.5) pipeline with seeded random weights
 on the GPU, serves one warm-up request, then profiles the three parts of a
@@ -41,6 +46,8 @@ def _category(name: str) -> str:
         return "temporal_attention_cs (K2)"
     if "bwd_dq" in n or "bwd_dkv" in n:
         return "flash_attention_bwd (K3)"
+    if "conv3x3_mma" in n or "conv3x3_f32" in n or "pack_weights" in n:
+        return "conv3x3_kernel (K4)"
     if "conv" in n or "implicit" in n or "winograd" in n or "fprop" in n:
         return "convolution"
     if any(key in n for key in ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90")):
@@ -90,49 +97,58 @@ def profile(fn, label: str, top: int = 12) -> dict:
     }
 
 
-def profile_train(dev) -> None:
-    from i2v_adapter_tpu_torch.config import I2VModelConfig, reference_train_config
+def _model_config(conv_impl: str):
+    from i2v_adapter_tpu_torch.config import I2VModelConfig
+
+    cfg = I2VModelConfig()
+    return cfg.replace(unet=cfg.unet.replace(conv_impl=conv_impl))
+
+
+def profile_train(dev, conv_impl: str) -> None:
+    from i2v_adapter_tpu_torch.config import reference_train_config
     from i2v_adapter_tpu_torch.training import make_train_step
     from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
 
-    model_cfg, tcfg = I2VModelConfig(), reference_train_config()
+    model_cfg, tcfg = _model_config(conv_impl), reference_train_config()
     state = random_train_state(model_cfg, tcfg, dev, seed=1)
     batch = random_train_batch(model_cfg, tcfg, dev, seed=0)
     step_fn = make_train_step(model_cfg, tcfg, device=dev)
     step_fn(state, batch)  # warm-up: cuDNN plans, kernel builds
     line = profile(lambda: step_fn(state, batch), "train_step")
     line.update(frames=tcfg.num_frames, size=tcfg.resolution, batch=tcfg.train_batch_size,
-                remat=tcfg.gradient_checkpointing)
+                remat=tcfg.gradient_checkpointing, conv_impl=conv_impl)
     print(json.dumps(line), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
+    ap.add_argument("--conv-impl", default="auto", choices=["auto", "xla", "pallas"],
+                    help="VideoUNetConfig.conv_impl of the profiled model")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     if args.train:
-        profile_train(dev)
+        profile_train(dev, args.conv_impl)
     else:
-        profile_serving(dev)
+        profile_serving(dev, args.conv_impl)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
     return 0
 
 
-def profile_serving(dev) -> None:
-    from i2v_adapter_tpu_torch.config import I2VModelConfig, PipelineConfig
+def profile_serving(dev, conv_impl: str) -> None:
+    from i2v_adapter_tpu_torch.config import PipelineConfig
     from i2v_adapter_tpu_torch.utils import image as image_utils
     from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 
     pcfg = PipelineConfig(num_frames=FRAMES, height=SIZE, width=SIZE,
                           num_inference_steps=STEPS, guidance_scale=7.5, blur_sigma=1.0,
                           dtype="bfloat16", int8_conv=False)
-    model_cfg = I2VModelConfig()
+    model_cfg = _model_config(conv_impl)
     pipe = random_pipeline(model_cfg, pcfg, dev)
     image = np.random.default_rng(6).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     pipe("a cat", condition_image=image, seed=0)  # warm-up: cuDNN plans, kernel builds
@@ -158,7 +174,7 @@ def profile_serving(dev) -> None:
 
         for label, fn in (("prep", run_prep), ("denoise_step", run_step), ("decode", run_decode)):
             line = profile(fn, label)
-            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True)
+            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl)
             print(json.dumps(line), flush=True)
 
 

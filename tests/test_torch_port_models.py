@@ -133,10 +133,13 @@ def test_video_unet_full_eval(unet_params, fast_gelu):
 
 
 def test_video_unet_refuses_unported_options():
-    for kw in (dict(int8_conv=True), dict(conv_impl="pallas"), dict(ip_variant="plus"),
-               dict(freeu=(0.9, 0.2, 1.2, 1.4))):
+    for kw in (dict(int8_conv=True), dict(ip_variant="plus"), dict(freeu=(0.9, 0.2, 1.2, 1.4))):
         with pytest.raises(NotImplementedError):
             VideoUNet(tiny_test_config().unet.replace(**kw), device=CPU)
+    # the fused-conv configuration is ported: it builds, with the same parameters
+    fused = VideoUNet(tiny_test_config().unet.replace(conv_impl="pallas"), device=CPU)
+    assert list(fused.state_dict()) == list(VideoUNet(tiny_test_config().unet, device=CPU).state_dict())
+    assert all(m.conv_impl == "pallas" for m in fused.modules() if isinstance(m, ResnetBlock2D))
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from i2v_adapter_tpu_torch import config as pconfig
 from i2v_adapter_tpu_torch.device import resolve_device
 from i2v_adapter_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, CLIPVisionEncoder, VideoUNet
 from i2v_adapter_tpu_torch.ops import attention as A
+from i2v_adapter_tpu_torch.ops import profile_int8_dense as I8
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
 from tests.torch_port_common import one_torch_thread  # noqa: F401
@@ -89,9 +90,12 @@ def test_port_uses_no_library_attention_or_compile():
 
 
 def test_kernel_sources_present():
-    for name in ("flash_attention", "flash_attention_bwd", "temporal_attention"):
+    from i2v_adapter_tpu_torch.ops import _build
+
+    assert set(_build.SOURCES) == {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    for name in _build.SOURCES:
         src = (PKG / "csrc" / f"{name}.cu").read_text()
-        assert "Replaces: i2v_adapter_tpu/ops/attention.py::" in src
+        assert "Replaces: i2v_adapter_tpu/ops/" in src
         assert "What bounds it here" in src
 
 
@@ -131,6 +135,10 @@ def test_wrappers_take_plain_path_on_cpu():
     torch.testing.assert_close(A.temporal_attention_cs(x, x, x, 2), A.temporal_attention_plain(x, x, x, 2))
     assert A.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0,
                                  "temporal_attention_cs": 0}
+    xq = torch.randint(-127, 128, (5, 16), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (16, 4), generator=g, dtype=torch.int8)
+    torch.testing.assert_close(I8.int8_matmul(xq, wq), xq.int() @ wq.int())
+    assert chip_smoke.launch_counts() == chip_smoke.expected_counts()
 
 
 def _tiny_text_params():

@@ -32,6 +32,7 @@ from i2v_adapter_tpu.training.train_i2v import make_train_step as j_make_train_s
 from i2v_adapter_tpu_torch import config as pconfig
 from i2v_adapter_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, CLIPVisionEncoder, VideoUNet
 from i2v_adapter_tpu_torch.ops import attention as A
+from i2v_adapter_tpu_torch.ops import conv3x3
 from i2v_adapter_tpu_torch.schedulers import get_velocity, make_schedule
 from i2v_adapter_tpu_torch.training import (
     create_train_state,
@@ -271,10 +272,11 @@ def test_train_launch_derivation_matches_the_model(monkeypatch):
     the wrapper calls of a real tiny train step, the flash-backward
     threshold lowered to the 256-token sites."""
     monkeypatch.setattr(A, "FLASH_BWD_MIN_NK", 256)
-    calls = {"flash_attention": 0, "flash_attention_bwd": 0, "temporal_attention_cs": 0}
+    calls = {"flash_attention": 0, "flash_attention_bwd": 0, "temporal_attention_cs": 0,
+             "conv3x3_kernel": 0}
 
-    def counting(name):
-        fn = getattr(A, name)
+    def counting(module, name):
+        fn = getattr(module, name)
 
         def wrapped(*a, **k):
             calls[name] += 1
@@ -282,7 +284,8 @@ def test_train_launch_derivation_matches_the_model(monkeypatch):
         return wrapped
 
     for name in calls:
-        monkeypatch.setattr(A, name, counting(name))
+        module = conv3x3 if name == "conv3x3_kernel" else A
+        monkeypatch.setattr(module, name, counting(module, name))
     from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
 
     mc = pconfig.tiny_test_config()
@@ -294,4 +297,5 @@ def test_train_launch_derivation_matches_the_model(monkeypatch):
     assert calls == chip_smoke.launches_per_train_step(mc.unet, 16, tc, min_nk=256)
     assert chip_smoke.launches_per_train_step(
         pconfig.VideoUNetConfig(), 32, dataclasses.replace(tc, train_mode="i2v")) == {
-        "flash_attention": 40, "flash_attention_bwd": 9, "temporal_attention_cs": 40}
+        "flash_attention": 40, "flash_attention_bwd": 9, "temporal_attention_cs": 40,
+        "conv3x3_kernel": 0}
