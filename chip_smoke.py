@@ -8,7 +8,8 @@ Phases, one JSON line each, in order:
 
 1. ``device``   -- the card (nvidia-smi name and power limit), versions
 2. ``build``    -- nvcc builds of the kernels in ``i2v_adapter_tpu_torch/csrc``
-                   with the ptxas register / shared-memory report
+                   with the ptxas register / shared-memory report; fails if
+                   a wgmma kernel or K3's pre-pass spills
 3. ``kernels``  -- each kernel against its plain PyTorch version at every
                    shape the serving and training paths give it, in fp32
                    and bf16, with kernel / plain / library times and the
@@ -282,7 +283,16 @@ def phase_device(rehearse: bool) -> dict:
     return info
 
 
+# kernels whose ptxas report must show no spills (the wgmma kernels and the
+# backward's pre-pass)
+NO_SPILL = re.compile(r"wgmma_kernel|bwd_prep_kernel")
+
+
 def phase_build(rehearse: bool) -> None:
+    """nvcc builds of every source, with each kernel's registers and spills
+    from ptxas; fails if a kernel in ``NO_SPILL`` spills.  ptxas notes that
+    it injected a wgmma wait or fence (which serialises the pipelined loops)
+    are counted per kernel."""
     from i2v_adapter_tpu_torch.ops import _build
 
     if rehearse:
@@ -290,21 +300,30 @@ def phase_build(rehearse: bool) -> None:
         return
     t0 = time.perf_counter()
     report = _build.build()
-    lines, kernel = [], "?"
+    lines, spills, injected, kernel = [], [], {}, "?"
+    name = re.compile(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|temporal_fwd_kernel|bwd_dq_wgmma_kernel"
+                      r"|bwd_dkv_wgmma_kernel|bwd_dq_mma_kernel|bwd_dkv_mma_kernel|bwd_dq_kernel"
+                      r"|bwd_dkv_kernel|bwd_prep_kernel|conv3x3_mma_kernel|conv3x3_f32_kernel)I(\w*?)EE")
     for r in report.values():
         for ln in r["ptxas"].splitlines():
-            m = re.search(r"(flash_fwd_mma_kernel|flash_fwd_kernel|temporal_fwd_kernel|bwd_dq_mma_kernel"
-                          r"|bwd_dkv_mma_kernel|bwd_dq_kernel|bwd_dkv_kernel|conv3x3_mma_kernel"
-                          r"|conv3x3_f32_kernel)I(\w*?)EE", ln)
-            if m:
+            m = name.search(ln)
+            if "injected" in ln and m:
+                key = f"{m[1]}<{m[2]}>"
+                injected[key] = injected.get(key, 0) + 1
+            elif m:
                 kernel = f"{m[1]}<{m[2].replace('13__nv_bfloat16', 'bf16')}>"
             elif "int8_mm_kernel" in ln:
                 kernel = "int8_mm_kernel"
             elif "spill" in ln or "Used" in ln:
                 lines.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
+                counts = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+                if NO_SPILL.search(kernel) and any(int(c) for c in counts):
+                    spills.append(f"{kernel}: {ln.strip()}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {k: {"seconds": v["seconds"], "cached": v["cached"]} for k, v in report.items()},
-          "ptxas": lines})
+          "ptxas": lines, "spills": spills, "wgmma_sync_injected": injected})
+    if spills:
+        raise AssertionError(f"build: kernels that must not spill do: {spills}")
 
 
 def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=False):

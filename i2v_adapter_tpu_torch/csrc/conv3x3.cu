@@ -36,6 +36,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90_tiles.cuh"
 
 namespace {
 
@@ -179,17 +180,6 @@ __device__ __forceinline__ uint64_t b_descriptor(const void* smem) {
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(B_LBO >> 4) << 16) | ((uint64_t)(B_SBO >> 4) << 32);
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// makes shared-memory writes of this thread visible to wgmma's operand reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // keeps a register live (and untouched) up to this point of the program
 __device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }

@@ -22,10 +22,14 @@
 // a few MB of inputs, far above the card's ridge point, so the flops must
 // run on the tensor cores.  Two paths:
 //
-// * bf16 (every UNet site): mma.sync m16n8k16 tiles, see
-//   flash_fwd_mma_kernel below.  It needs 16-byte rows (head dim and
-//   strides multiples of 8, aligned bases); other bf16 inputs are refused.
-//   wgmma/TMA pipelining is later work.
+// * bf16 (every UNet site): wgmma products fed by a TMA ring of K/V tiles,
+//   see flash_fwd_wgmma_kernel below.  It needs 16-byte rows (head dim and
+//   strides multiples of 8, aligned bases) that a tensor map can describe;
+//   other bf16 inputs are refused.  Measured on an H100 (PERF.md): with the
+//   exp2s or the P.V products switched off the D = 40 loop took as long,
+//   while more query rows per CTA (fewer K/V tile reads from L2 per row)
+//   made it faster, hence four warpgroups at D <= 48; what bounds the rest
+//   is an open question there.
 // * fp32: scalar fp32 FMAs (about 67 TFLOP/s peak), the exact reference
 //   path of the card tests.
 //
@@ -44,7 +48,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90_tiles.cuh"
 
 namespace {
 
@@ -213,230 +217,291 @@ int dispatch(int dt, const void* q, const void* k, const void* v, void* o, float
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path: mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+// bf16 tensor-core path: wgmma fed by a TMA ring (tile layout, descriptors
+// and register order in sm90_tiles.cuh).
 //
-// Each warp owns 16 query rows; the CTA stages its Q tile once and then
-// 64-key K tiles ([key][d]) and transposed V tiles ([d][key]) in shared
-// memory, rows padded by 8 elements so the 32-bit fragment loads of a warp
-// hit 32 different banks.  S = Q K^T lands in registers in the mma C layout,
-// which is also the A layout of P for P V (the FlashAttention-2 register
-// reuse), so P never touches shared memory.  Row max and row sum are
-// reduced over the 4 lanes that share a row.  Used when the head dim is a
-// multiple of 8 (padded to 16 with zeros) up to 160 and every row starts on
-// a 16-byte boundary, which holds at every UNet site.
+// One CTA of WGS warpgroups per (64*WGS query rows, batch*head); each
+// warpgroup owns 64 rows.  The Q tile is loaded once; K and V tiles of BKV
+// keys stream through a ring of NS stages, each stage completing on its own
+// mbarrier.  Thread 0 issues a stage's TMA boxes right after the barrier
+// that frees it, NS - 2 tiles ahead, and no other thread spends an
+// instruction on loads.  Per tile:
+//   S = Q K^T   wgmma m64nBKVk16, A = Q and B = K from shared memory, both
+//               K-major as stored ([token][d]);
+//   softmax     on the S accumulators in registers (row max and row sum
+//               over the 4 lanes that share a row);
+//   O += P V    wgmma m64nDPk16, A = P repacked to bf16 in registers, B = V
+//               through the transpose bit (MN-major), read as stored.
+// The softmax of tile it runs while the tensor cores do P.V of tile it - 1
+// (see the loop).
+// Under the static offset (serving's flash_static_max) the loop has no row
+// max and no rescale: STATIC is a template parameter.
+// The head dim is padded to a multiple of 16 (40 -> 48): the last 16-column
+// box reaches past d and TMA zero-fills it; a 64-column pad with a 128-byte
+// swizzle would cost a third more Q.K^T steps at D = 40.  Rows past nq or nk
+// are zero-filled the same way and masked.  Only the head dim must be
+// contiguous; the tensor maps carry every other stride.  blockIdx.y runs
+// over (kv batch, head, frame) with the frame fastest, so the kv_repeat
+// frames that read one K/V run side by side and find it in L2.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BKV = 64;
+template <int DP>
+struct FwdTile {
+  // warpgroups of 64 query rows: more rows share each K/V tile where the
+  // registers allow (at D = 40 the K/V traffic from L2 sets the pace)
+  static constexpr int WGS = DP <= 48 ? 4 : 2;
+  static constexpr int BKV = 64;                 // keys per tile
+  static constexpr int NS = DP <= 96 ? 4 : 3;    // ring stages
+  static constexpr int THREADS = WGS * 128;
+  // CTAs per SM the registers are sized for: one at D = 160, whose O
+  // accumulator alone is 80 registers a thread
+  static constexpr int MINB = (WGS <= 2 && DP <= 96) ? 2 : 1;
+  static constexpr int BQ = WGS * 64;
+  static constexpr int QBYTES = BQ * DP * 2;
+  static constexpr int TILE = BKV * DP * 2;     // bytes of one K or V tile
+  // + barriers, + slack to align the tiles to 1024 bytes
+  static constexpr size_t SMEM = (size_t)QBYTES + 2u * NS * TILE + 8 * (NS + 1) + 1024;
+};
 
-template <int DP, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) flash_fwd_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int nq, int nk, int heads, int d, int kv_repeat,
-    long long sqb, long long sqn, long long sqh,
-    long long skb, long long skn, long long skh,
-    long long svb, long long svn, long long svh,
-    long long sob, long long son, long long soh,
-    float scale_log2, float static_max) {
-  constexpr int BQ = WARPS * 16;
-  constexpr int RS = DP + 8;        // Q / K smem row stride (elements)
-  constexpr int VS = MMA_BKV + 8;   // V^T smem row stride
-  constexpr int C8 = DP / 8;        // 16-byte chunks per row
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // [BQ][RS]
-  __nv_bfloat16* ks = qs + BQ * RS;                                // [BKV][RS]
-  __nv_bfloat16* vt = ks + MMA_BKV * RS;                           // [DP][VS]
+// The online softmax of one score tile s (register order, rows g and g + 8
+// of this warp's 16), in place: s becomes p.  Under the static offset p =
+// exp2(s * scale - static_max); otherwise the running max m moves and
+// alpha says by how much the earlier sums shrink.  The row sums run in four
+// partial sums per row (ls[i % 8]: rows g, g, g+8, g+8, g, g, g+8, g+8), so
+// the adds do not form one long chain.
+template <int N, bool STATIC>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             int kbase, int nk, int t, float scale_log2, float static_max) {
+  if (kbase + 2 * N > nk) {  // keys past nk
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (kbase + 8 * (i >> 2) + 2 * t + (i & 1) >= nk) s[i] = NEG_BIG;
+    }
+  }
+  float ls[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (STATIC) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = exp2_ftz(fmaf(s[i], scale_log2, -static_max));
+      ls[i & 7] += s[i];
+    }
+  } else {
+    float mt[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] *= scale_log2;
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m[r], mt[r]);
+      alpha[r] = exp2_ftz(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = exp2_ftz(s[i] - m[(i >> 1) & 1]);
+      ls[i & 7] += s[i];
+    }
+  }
+  l[0] += (ls[0] + ls[1]) + (ls[4] + ls[5]);
+  l[1] += (ls[2] + ls[3]) + (ls[6] + ls[7]);
+}
+
+template <int DP, bool STATIC>
+__global__ void __launch_bounds__(FwdTile<DP>::THREADS, FwdTile<DP>::MINB) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, TileCoord cq, TileCoord ck, TileCoord cv,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int nq, int nk, int heads, int d,
+    int kv_repeat, long long sob, long long son, long long soh, float scale_log2, float static_max) {
+  using T = FwdTile<DP>;
+  constexpr int BKV = T::BKV, NS = T::NS, BQ = T::BQ, TILE = T::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // [DP/16][BQ][16]
+  uint8_t* ks = qs + T::QBYTES;        // [NS][DP/16][BKV][16]
+  uint8_t* vs = ks + NS * TILE;        // [NS][DP/16][BKV][16]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vs + NS * TILE);  // [NS] K/V stages, [NS] Q
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
-  const int bq = bh / heads;
-  const int h = bh - bq * heads;
-  const int bkv = bq / kv_repeat;
+  const int kvh = blockIdx.y / kv_repeat;
+  const int bkv = kvh / heads, h = kvh - bkv * heads;
+  const int bq = bkv * kv_repeat + (blockIdx.y - kvh * kv_repeat);
   const int q0 = blockIdx.x * BQ;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const int ntiles = (nk + BKV - 1) / BKV;
 
-  const __nv_bfloat16* qb = q + bq * sqb + h * sqh;
-  for (int i = tid; i < BQ * C8; i += WARPS * 32) {
-    const int r = i / C8, c = (i - r * C8) * 8;
-    uint4 val = zero;
-    if (q0 + r < nq && c < d) val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * sqn + c);
-    *reinterpret_cast<uint4*>(qs + r * RS + c) = val;
+  if (tid == 0) {
+    for (int i = 0; i <= NS; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  uint32_t qf[DP / 16][4];
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    qf[kk][0] = ld32(qs + r0 * RS + kk * 16 + 2 * t);
-    qf[kk][1] = ld32(qs + (r0 + 8) * RS + kk * 16 + 2 * t);
-    qf[kk][2] = ld32(qs + r0 * RS + kk * 16 + 8 + 2 * t);
-    qf[kk][3] = ld32(qs + (r0 + 8) * RS + kk * 16 + 8 + 2 * t);
+  auto load_kv = [&](int tile) {
+    const int slot = tile % NS;
+    mbar_expect_tx(&bar[slot], 2 * TILE);
+    tma_tile<DP, BKV>(ks + slot * TILE, &tk, &bar[slot], ck, tile * BKV, h, bkv);
+    tma_tile<DP, BKV>(vs + slot * TILE, &tv, &bar[slot], cv, tile * BKV, h, bkv);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bar[NS], T::QBYTES);
+    tma_tile<DP, BQ>(qs, &tq, &bar[NS], cq, q0, h, bq);
+    for (int tile = 0; tile < NS - 1 && tile < ntiles; ++tile) load_kv(tile);
   }
 
-  float oacc[DP / 8][4];
+  float oacc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
-  const bool use_static = static_max != 0.f;
-  const __nv_bfloat16* kb = k + bkv * skb + h * skh;
-  const __nv_bfloat16* vb = v + bkv * svb + h * svh;
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  // Q rows of this warpgroup, K-major; K K-major; V MN-major (transposed)
+  const uint64_t qdesc = smem_desc(qs + wg * 64 * SLICE_ROW, 16, 8 * SLICE_ROW);
+  const uint64_t kdesc = smem_desc(ks, 16, 8 * SLICE_ROW);
+  const uint64_t vdesc = smem_desc(vs, BKV * SLICE_ROW, 8 * SLICE_ROW);
+  auto issue_s = [&](float (&s)[BKV / 2], int slot) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<BKV>(s, desc_add(qdesc, kk * BQ * SLICE_ROW),
+                    desc_add(kdesc, slot * TILE + kk * BKV * SLICE_ROW), kk);
+    }
+  };
+  // O += P V, P rounded to bf16 (p.astype(v.dtype)); the row sums keep the
+  // unrounded p.  Rescales O first (the dynamic max moved).
+  auto issue_pv = [&](const uint32_t (&pa)[BKV / 16][4], int slot) {
+    if (!STATIC) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      wgmma_rs_tb<DP>(oacc, pa[kk], desc_add(vdesc, slot * TILE + kk * 16 * SLICE_ROW), 1);
+    }
+  };
 
-  for (int kt = 0; kt < nk; kt += MMA_BKV) {
+  // Software pipeline per warpgroup: iteration it issues S of tile it and
+  // P.V of tile it - 1 together, then runs the softmax of tile it while
+  // P.V runs on the tensor cores.  One score buffer suffices: P of tile
+  // it - 1 is already packed into pa.
+  float s[BKV / 2];
+  uint32_t pa[BKV / 16][4];
+  mbar_wait(&bar[NS], 0);
+  mbar_wait(&bar[0], 0);
+  wgmma_fence();
+  issue_s(s, 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  keep(s);
+  softmax_tile<BKV / 2, STATIC>(s, m, l, alpha, 0, nk, t, scale_log2, static_max);
+  to_a_frags<BKV / 16>(pa, s);
+  // every iteration issues the same two wgmma groups, so the waits below
+  // are exact and the compiler adds none of its own
+  for (int it = 1; it < ntiles; ++it) {
+    // every warpgroup is done with tile it - 2 (its P.V completed in
+    // iteration it - 1), whose stage the next load reuses
     __syncthreads();
-    for (int i = tid; i < MMA_BKV * C8; i += WARPS * 32) {
-      const int key = i / C8, c = (i - key * C8) * 8;
-      uint4 kv = zero, vv = zero;
-      if (kt + key < nk && c < d) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)(kt + key) * skn + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)(kt + key) * svn + c);
-      }
-      *reinterpret_cast<uint4*>(ks + key * RS + c) = kv;
-      const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c + e) * VS + key] = pv[e];
-    }
-    __syncthreads();
-
-    float s[MMA_BKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < MMA_BKV / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (n * 8 + g) * RS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        mma_bf16(s[n], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-      }
-    }
-    // scale, mask keys past nk; e = 0,1 -> row g, e = 2,3 -> row g + 8
-#pragma unroll
-    for (int n = 0; n < MMA_BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = (kt + n * 8 + 2 * t + (e & 1) < nk) ? s[n][e] * scale_log2 : NEG_BIG;
-      }
-    }
-    if (use_static) {
-#pragma unroll
-      for (int n = 0; n < MMA_BKV / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = exp2f(s[n][e] - static_max);
-          l[e >> 1] += s[n][e];
-        }
-      }
-    } else {
-      float mt[2] = {NEG_BIG, NEG_BIG};
-#pragma unroll
-      for (int n = 0; n < MMA_BKV / 8; ++n) {
-        mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
-        mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-        const float m_new = fmaxf(m[r], mt[r]);
-        const float alpha = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= alpha;
-#pragma unroll
-        for (int n = 0; n < DP / 8; ++n) {
-          oacc[n][2 * r] *= alpha;
-          oacc[n][2 * r + 1] *= alpha;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < MMA_BKV / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-          l[e >> 1] += s[n][e];
-        }
-      }
-    }
-    // O += P V, P rounded to bf16 (p.astype(v.dtype)) in the A layout
-#pragma unroll
-    for (int kk = 0; kk < MMA_BKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const __nv_bfloat16* vrow = vt + (n * 8 + g) * VS + kk * 16 + 2 * t;
-        mma_bf16(oacc[n], pa, ld32(vrow), ld32(vrow + 8));
-      }
-    }
+    if (tid == 0 && it + NS - 2 < ntiles) load_kv(it + NS - 2);
+    const int slot = it % NS;
+    mbar_wait(&bar[slot], (it / NS) & 1);
+    wgmma_fence();
+    issue_s(s, slot);
+    wgmma_commit();
+    issue_pv(pa, (it - 1) % NS);
+    wgmma_commit();
+    wgmma_wait_one();  // S done
+    keep(s);
+    softmax_tile<BKV / 2, STATIC>(s, m, l, alpha, it * BKV, nk, t, scale_log2, static_max);
+    wgmma_wait_all();  // P.V of tile it - 1 done: pa and oacc are free
+    keep(oacc);
+    keep(pa);
+    to_a_frags<BKV / 16>(pa, s);
   }
+  issue_pv(pa, (ntiles - 1) % NS);
+  wgmma_commit();
+  wgmma_wait_all();
+  keep(oacc);
 
+  const int bh = bq * heads + h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + r0 + 8 * r;
+    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
     if (row < nq) {
       if (lse != nullptr && t == 0) {
-        lse[(long long)bh * nq + row] = (use_static ? static_max : m[r]) + log2f(l[r]);
+        lse[(long long)bh * nq + row] = (STATIC ? static_max : m[r]) + log2f(l[r]);
       }
       const float inv = 1.f / l[r];  // l == 0 (all scores underflowed) gives NaN rows
       __nv_bfloat16* op = o + bq * sob + (long long)row * son + h * soh;
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const int dd = n * 8 + 2 * t;
+      for (int j = 0; j < DP / 8; ++j) {
+        const int dd = 8 * j + 2 * t;
         if (dd < d) {
-          op[dd] = __float2bfloat16(oacc[n][2 * r] * inv);
-          op[dd + 1] = __float2bfloat16(oacc[n][2 * r + 1] * inv);
+          *reinterpret_cast<uint32_t*>(op + dd) = pack_bf16x2(oacc[4 * j + 2 * r] * inv,
+                                                              oacc[4 * j + 2 * r + 1] * inv);
         }
       }
     }
   }
 }
 
-template <int DP>
-int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
-               int nk, int heads, int d, int kv_repeat, const long long* st,
-               float scale_log2, float static_max, cudaStream_t stream) {
-  // 8 warps (128 query rows) halve the K/V re-reads where registers allow
-  constexpr int WARPS = DP <= 96 ? 8 : 4;
-  constexpr int BQ = WARPS * 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-      ((size_t)(BQ + MMA_BKV) * (DP + 8) + (size_t)DP * (MMA_BKV + 8));
-  auto kern = flash_fwd_mma_kernel<DP, WARPS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DP, bool STATIC>
+int launch_wgmma(const TileMap* maps, void* o, float* lse, int bq, int nq, int nk, int heads, int d,
+                 int kv_repeat, const long long* so, float scale_log2, float static_max,
+                 cudaStream_t stream) {
+  using T = FwdTile<DP>;
+  auto kern = flash_fwd_wgmma_kernel<DP, STATIC>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + BQ - 1) / BQ, bq * heads);
-  kern<<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, nq, nk, heads, d,
-      kv_repeat, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale_log2, static_max);
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + T::BQ - 1) / T::BQ, bq * heads);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(
+      maps[0].map, maps[1].map, maps[2].map, TileCoord{maps[0].order}, TileCoord{maps[1].order},
+      TileCoord{maps[2].order}, static_cast<__nv_bfloat16*>(o), lse, nq, nk, heads, d, kv_repeat,
+      so[0], so[1], so[2], scale_log2, static_max);
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
-                 int nk, int heads, int d, int kv_repeat, const long long* st,
-                 float scale_log2, float static_max, cudaStream_t stream) {
+template <int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
+              int nk, int heads, int d, int kv_repeat, const long long* st,
+              float scale_log2, float static_max, cudaStream_t stream) {
+  using T = FwdTile<DP>;
+  const int bkv = bq / kv_repeat;
+  TileMap maps[3];
+  if (!make_tile_map(&maps[0], q, d, nq, heads, bq, st[1], st[2], st[0], T::BQ) ||
+      !make_tile_map(&maps[1], k, d, nk, heads, bkv, st[4], st[5], st[3], T::BKV) ||
+      !make_tile_map(&maps[2], v, d, nk, heads, bkv, st[7], st[8], st[6], T::BKV)) {
+    return -4;
+  }
+  return static_max != 0.f
+      ? launch_wgmma<DP, true>(maps, o, lse, bq, nq, nk, heads, d, kv_repeat, st + 9, scale_log2, static_max, stream)
+      : launch_wgmma<DP, false>(maps, o, lse, bq, nq, nk, heads, d, kv_repeat, st + 9, scale_log2, static_max, stream);
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int bq, int nq,
+                   int nk, int heads, int d, int kv_repeat, const long long* st,
+                   float scale_log2, float static_max, cudaStream_t stream) {
   switch ((d + 15) / 16 * 16) {
-    case 16: return launch_mma<16>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 32: return launch_mma<32>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 48: return launch_mma<48>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 64: return launch_mma<64>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 80: return launch_mma<80>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 96: return launch_mma<96>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 128: return launch_mma<128>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
-    case 160: return launch_mma<160>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 16: return launch_dp<16>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 32: return launch_dp<32>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 48: return launch_dp<48>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 64: return launch_dp<64>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 80: return launch_dp<80>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 96: return launch_dp<96>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 128: return launch_dp<128>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
+    case 160: return launch_dp<160>(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, stream);
     default: return -2;
   }
 }
 
 // the tensor-core path needs 16-byte rows: d % 8 == 0, strides % 8 == 0,
 // 16-byte-aligned bases, and a padded head dim it is instantiated for
-bool mma_ok(const void* q, const void* k, const void* v, const void* o, int d,
-            const long long* st) {
+bool wgmma_ok(const void* q, const void* k, const void* v, const void* o, int d,
+              const long long* st) {
   const int dp = (d + 15) / 16 * 16;
   if (d % 8 != 0 || d > 160 || dp == 112 || dp == 144) return false;
   for (int i = 0; i < 12; ++i) {
@@ -475,8 +540,8 @@ extern "C" int flash_attention_fwd(
   if (dtype == 0)
     return dispatch(dt, q, k, v, o, lse, bq, nq, nk, heads, d, G, kv_repeat, st, scale_log2, static_max, s);
   if (dtype == 1)
-    return mma_ok(q, k, v, o, d, st)
-        ? dispatch_mma(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, s)
+    return wgmma_ok(q, k, v, o, d, st)
+        ? dispatch_wgmma(q, k, v, o, lse, bq, nq, nk, heads, d, kv_repeat, st, scale_log2, static_max, s)
         : -4;
   return -1;
 }

@@ -136,7 +136,7 @@ _FLASH_ARGTYPES = (
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 )
 _FLASH_BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 15
     + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 )
 
@@ -240,9 +240,10 @@ def flash_attention_bwd(q, k, v, o, g, lse, *, kv_repeat: int = 1,
     """K3: the flash-attention backward -> ``(dq, dk, dv)``.
 
     ``o`` and ``lse`` are K1's output and log2 logsumexp for the same
-    inputs, ``g`` the gradient of ``o``.  ``dsum = rowsum(g*o)`` is a plain
-    reduction here; the kernel recomputes the probabilities tile by tile and
-    reduces the ``kv_repeat`` fan-in of dk/dv inside one block, without
+    inputs, ``g`` the gradient of ``o``.  One launch runs three kernels: a
+    pre-pass that writes ``(lse, dsum = rowsum(g*o))`` per query row into
+    scratch, then dq and dk/dv, which recompute the probabilities tile by
+    tile; dk/dv reduce the ``kv_repeat`` fan-in inside one block, without
     atomics, so the result is the same run to run."""
     bq, nq, h, d = q.shape
     bkv, nk = k.shape[:2]
@@ -258,18 +259,20 @@ def flash_attention_bwd(q, k, v, o, g, lse, *, kv_repeat: int = 1,
         return _plain_flash_backward(q, k, v, o, g, lse, kv_repeat, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd: unsupported device {q.device}")
-    code = _check_kernel_inputs("flash_attention_bwd", q, k, v, g)
+    code = _check_kernel_inputs("flash_attention_bwd", q, k, v, o, g)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous fp32 (Bq*H, Nq)")
-    dsum = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (Bq, H, Nq)
+    pad = _build.entry("flash_attention_bwd", "flash_attention_bwd_pad_rows", [])()
+    nq_pad = -(-nq // pad) * pad
+    scratch = torch.empty((bq * h * nq_pad, 2), dtype=torch.float32, device=q.device)
     dq = torch.empty((bq, nq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((bkv, nk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     err = _build.entry("flash_attention_bwd", "flash_attention_bwd", _FLASH_BWD_ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code,
-        bq, nq, nk, h, d, kv_repeat,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code,
+        bq, nq, nk, h, d, kv_repeat, nq_pad,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *g.stride()[:3],
         scale * LOG2E, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

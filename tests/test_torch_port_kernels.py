@@ -47,39 +47,51 @@ def _relerr(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("rep,n,d,static_max", [(1, 1024, 80, 64.0), (16, 577, 40, 0.0)])
-def test_flash_kernel_matches_plain_on_card(cuda_device, rep, n, d, static_max):
-    """fp32: the scalar kernel."""
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(16, n, 4, d, generator=g, device=cuda_device)
-    k = torch.randn(16 // rep, n, 4, d, generator=g, device=cuda_device)
-    v = torch.randn(16 // rep, n, 4, d, generator=g, device=cuda_device)
-    before = A.flash_attention.launches
-    got = A.flash_attention(q, k, v, kv_repeat=rep, static_max=static_max)
-    assert A.flash_attention.launches == before + 1
-    want = A._plain_attention(q, k, v, rep, 1 / math.sqrt(d), static_max)
-    assert _relerr(got, want) < TOL_FP32
+def _flash_inputs(dev, bq, rep, n, h, d, dtype, seed, nk=None):
+    """q as a strided view of a wider (fused-projection-like) buffer, k/v
+    of batch bq // rep with ``nk`` keys (default n)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nk = n if nk is None else nk
+    q = torch.randn(bq, n, 2 * h * d, generator=g, device=dev)[..., : h * d].unflatten(-1, (h, d))
+    k = torch.randn(bq // rep, nk, h, d, generator=g, device=dev)
+    v = torch.randn(bq // rep, nk, h, d, generator=g, device=dev)
+    return tuple(x.to(dtype) for x in (q, k, v))
+
+
+# (kv_repeat, nq, nk, d): the serving and training head dims at both
+# kv_repeat values, and ragged token counts that no tile size divides
+FLASH_CASES = [(1, 1024, 1024, 80), (16, 577, 577, 40), (1, 256, 256, 160), (16, 256, 256, 160),
+               (16, 1024, 1024, 40), (1, 577, 130, 40), (16, 130, 577, 80), (2, 130, 130, 160)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rep", [1, 16])
 @pytest.mark.parametrize("static_max", [64.0, 0.0])
-def test_flash_mma_kernel_matches_plain_on_card(cuda_device, rep, static_max):
-    """bf16: the tensor-core kernel at a main-path shape (32 frame-evals,
-    N = 1024, 8 heads, D = 80), q a strided view of a wider buffer."""
-    n, h, d = 1024, 8, 80
-    g = torch.Generator(device=cuda_device).manual_seed(rep)
-    q = torch.randn(32, n, 2 * h * d, generator=g, device=cuda_device)[..., : h * d]
-    q = q.unflatten(-1, (h, d)).to(torch.bfloat16)
-    k = torch.randn(32 // rep, n, h, d, generator=g, device=cuda_device).to(torch.bfloat16)
-    v = torch.randn(32 // rep, n, h, d, generator=g, device=cuda_device).to(torch.bfloat16)
+@pytest.mark.parametrize("rep,nq,nk,d", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, rep, nq, nk, d, static_max):
+    """fp32: the scalar kernel, output and log2 logsumexp."""
+    q, k, v = _flash_inputs(cuda_device, 16, rep, nq, 2, d, torch.float32, seed=nq + d, nk=nk)
     before = A.flash_attention.launches
-    got = A.flash_attention(q, k, v, kv_repeat=rep, static_max=static_max)
+    got, lse = A.flash_attention(q, k, v, kv_repeat=rep, static_max=static_max, with_lse=True)
     assert A.flash_attention.launches == before + 1
-    want = A._plain_attention(q, k, v, rep, 1 / math.sqrt(d), static_max)
+    want, want_lse = A._plain_attention(q, k, v, rep, 1 / math.sqrt(d), static_max, with_lse=True)
+    assert _relerr(got, want) < TOL_FP32
+    assert _relerr(lse, want_lse) < TOL_FP32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static_max", [64.0, 0.0])
+@pytest.mark.parametrize("rep,nq,nk,d", FLASH_CASES)
+def test_flash_mma_kernel_matches_plain_on_card(cuda_device, rep, nq, nk, d, static_max):
+    """bf16: the wgmma kernel (32 frame-evals, 8 heads), q a strided view of
+    a wider buffer; the logsumexp is fp32 from fp32 scores on both sides."""
+    q, k, v = _flash_inputs(cuda_device, 32, rep, nq, 8, d, torch.bfloat16, seed=rep + d, nk=nk)
+    before = A.flash_attention.launches
+    got, lse = A.flash_attention(q, k, v, kv_repeat=rep, static_max=static_max, with_lse=True)
+    assert A.flash_attention.launches == before + 1
+    want, want_lse = A._plain_attention(q, k, v, rep, 1 / math.sqrt(d), static_max, with_lse=True)
     assert torch.isfinite(got).all()
     assert _relerr(got, want) < TOL_BF16
+    assert _relerr(lse, want_lse) < TOL_FP32
 
 
 @pytest.mark.gpu
@@ -90,6 +102,11 @@ def test_flash_kernel_refuses_unaligned_bf16(cuda_device):
     with pytest.raises(ValueError, match="multiples of 8"):
         A.flash_attention(q, q, q)
     assert A.flash_attention.launches == before
+    lse = torch.zeros(2 * 2, 256, device=cuda_device)
+    before = A.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        A.flash_attention_bwd(q, q, q, q, q, lse)
+    assert A.flash_attention_bwd.launches == before
 
 
 @pytest.mark.gpu
@@ -123,10 +140,11 @@ def _grad_inputs(dev, bq, rep, n, h, d, dtype, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rep,n,d", [(1, 1024, 40), (16, 1024, 40), (1, 577, 80), (16, 577, 160),
-                                     (2, 1030, 80)])
+                                     (2, 1030, 80), (16, 577, 80), (1, 130, 40), (16, 130, 80)])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, dtype, rep, n, d):
     """K3 vs its plain version from the same o and lse: fp32 (scalar
-    kernels) and bf16 (tensor-core kernels), kv_repeat fan-in, ragged N."""
+    kernels) and bf16 (wgmma kernels at D <= 96, mma.sync at 160),
+    kv_repeat fan-in, ragged N."""
     q, k, v, o, do, lse = _grad_inputs(cuda_device, 16, rep, n, 2, d, dtype, seed=n + d + rep)
     before = A.flash_attention_bwd.launches
     got = A.flash_attention_bwd(q, k, v, o, do, lse, kv_repeat=rep)
@@ -136,21 +154,6 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, dtype, rep, n, d):
     for name, a, b in zip("qkv", got, want):
         assert torch.isfinite(a).all(), f"d{name}"
         assert _relerr(a, b) < tol, f"d{name}: {_relerr(a, b)}"
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("static_max", [64.0, 0.0])
-def test_flash_lse_matches_plain_logsumexp_on_card(cuda_device, dtype, static_max):
-    """K1's log2 logsumexp vs the plain one, both from fp32 scores."""
-    g = torch.Generator(device=cuda_device).manual_seed(3)
-    q = torch.randn(32, 577, 8, 80, generator=g, device=cuda_device).to(dtype)
-    k = torch.randn(2, 577, 8, 80, generator=g, device=cuda_device).to(dtype)
-    o, lse = A.flash_attention(q, k, k, kv_repeat=16, static_max=static_max, with_lse=True)
-    want_o, want = A._plain_attention(q, k, k, 16, 1 / math.sqrt(80), static_max, with_lse=True)
-    assert lse.shape == (32 * 8, 577) and lse.dtype == torch.float32
-    assert _relerr(lse, want) < TOL_FP32
-    assert _relerr(o, want_o) < (TOL_FP32 if dtype == torch.float32 else TOL_BF16)
 
 
 @pytest.mark.gpu
