@@ -283,9 +283,9 @@ def phase_device(rehearse: bool) -> dict:
     return info
 
 
-# kernels whose ptxas report must show no spills (the wgmma kernels and the
-# backward's pre-pass)
-NO_SPILL = re.compile(r"wgmma_kernel|bwd_prep_kernel")
+# kernels whose ptxas report must show no spills (the wgmma kernels, the
+# backward's pre-pass and the temporal tensor-core kernel)
+NO_SPILL = re.compile(r"wgmma_kernel|bwd_prep_kernel|temporal_mma_kernel")
 
 
 def phase_build(rehearse: bool) -> None:
@@ -301,9 +301,10 @@ def phase_build(rehearse: bool) -> None:
     t0 = time.perf_counter()
     report = _build.build()
     lines, spills, injected, kernel = [], [], {}, "?"
-    name = re.compile(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|temporal_fwd_kernel|bwd_dq_wgmma_kernel"
-                      r"|bwd_dkv_wgmma_kernel|bwd_dq_mma_kernel|bwd_dkv_mma_kernel|bwd_dq_kernel"
-                      r"|bwd_dkv_kernel|bwd_prep_kernel|conv3x3_mma_kernel|conv3x3_f32_kernel)I(\w*?)EE")
+    name = re.compile(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|temporal_mma_kernel|temporal_fwd_kernel"
+                      r"|bwd_dq_wgmma_kernel|bwd_dkv_wgmma_kernel|bwd_dq_mma_kernel|bwd_dkv_mma_kernel"
+                      r"|bwd_dq_kernel|bwd_dkv_kernel|bwd_prep_kernel|conv3x3_wgmma_kernel"
+                      r"|conv3x3_f32_kernel)I(\w*?)EE")
     for r in report.values():
         for ln in r["ptxas"].splitlines():
             m = name.search(ln)
@@ -436,7 +437,7 @@ def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
     return row, ok
 
 
-def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False):
+def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_weight=0):
     """One K2 shape.  ``forced`` goes through ``temporal_attention(impl=
     "kernel")``, the dispatcher with the kernel forced (the reference's
     all-of-C kernel K6, which its forced impl also runs below 128 tokens)."""
@@ -459,7 +460,7 @@ def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False):
     k32 = torch.randn(b, f, s, c, generator=g, device=dev)
     v32 = torch.randn(b, f, s, c, generator=g, device=dev)
     row = {"name": name, "b": b, "fq": fq, "f": f, "s": s, "c": c, "heads": heads,
-           "launches_per_eval": weight}
+           "launches_per_eval": weight, "launches_per_step": step_weight}
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         q, k, v = (x.to(dt) for x in (q32, k32, v32))
         got = temporal_attention_cs(q, k, v, heads)
@@ -612,8 +613,12 @@ def phase_kernels(dev, rehearse: bool):
         ("motion F32 S1024 C640", 2, 32, 32, 1024, 640, 0),
         ("motion S576 C1280", 2, 16, 16, 576, 1280, 0),
         ("motion F32 S256 C1280", 2, 32, 32, 256, 1280, 0),
-        ("train motion S1024 C320", 2, 16, 16, 1024, 320, 0),
-        ("train motion S256 C640", 2, 16, 16, 256, 640, 0),
+    ]
+    # K2 at the 256 px training step: 20 launches at each site per step
+    # (10 motion attentions, forward and the checkpointed recompute)
+    train_temporal_cases = [
+        ("train motion S1024 C320", 2, 16, 16, 1024, 320, 20),
+        ("train motion S256 C640", 2, 16, 16, 256, 640, 20),
     ]
     # K1 on (B, H, N, D) storage (the reference's K5) at the serving sites
     row_major_cases = [c for c in flash_cases if c[-1] > 0]
@@ -673,6 +678,10 @@ def phase_kernels(dev, rehearse: bool):
         failed += [] if ok else ["bwd " + row["name"]]
     for case in temporal_cases:
         row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=case[-1])
+        rows["temporal_attention_cs"].append(row)
+        failed += [] if ok else [row["name"]]
+    for case in train_temporal_cases:
+        row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=0, step_weight=case[-1])
         rows["temporal_attention_cs"].append(row)
         failed += [] if ok else [row["name"]]
     emit({"phase": "kernels", "tol_fp32": TOL_FP32, "tol_bf16": TOL_BF16,
@@ -1087,7 +1096,8 @@ def summary(rows, paths) -> dict:
     """Per kernel: launches on its main paths (each path counted from 0)
     and the launch-weighted mean per launch over its main-path shapes
     (weights: launches per serving UNet evaluation, per training step for
-    K3, per tool run for K7)."""
+    K3, per tool run for K7); for K2, K3 and K4 also the means over the
+    training step's shapes (``train_ms``, weights: launches per step)."""
     out = []
     for name, key, counter, source, replaces, on_paths, weight_key in SUMMARY:
         cases = rows[key]
@@ -1105,6 +1115,13 @@ def summary(rows, paths) -> dict:
             "bound_by": "bytes" if bytes_side * 2 > w else "operations",
             "library_ms": mean("library_ms"),
         })
+        # the same means over the 256 px training step's shapes, weighted by
+        # their launches per step, where the kernel runs there
+        train = [r for r in cases if r.get("launches_per_step", 0) > 0]
+        if train:
+            wt = sum(r["launches_per_step"] for r in train)
+            out[-1].update({f"train_{k}": sum(r[k] * r["launches_per_step"] for r in train) / wt
+                            for k in ("ms", "bound_ms", "library_ms")})
     return {"kernels": out}
 
 

@@ -27,21 +27,31 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
-// addresses (16-byte aligned) of matrix j; r[j] = matrix j [g][2t, 2t+1],
-// the layout of an mma A fragment (matrices: rows 0-7 / 8-15 at k 0-7, then
-// at k 8-15) or of two B fragments read from [n][k] rows.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+// Four 8x8 b16 matrices from shared memory (addr: a shared-state-space
+// address): lanes 8j..8j+7 give the row addresses (16-byte aligned) of
+// matrix j; r[j] = matrix j [g][2t, 2t+1], the layout of an mma A fragment
+// (matrices: rows 0-7 / 8-15 at k 0-7, then at k 8-15) or of two B fragments
+// read from [n][k] rows.  The .trans form gives r[j] = matrix j [2t, 2t+1][g]:
+// two B fragments read from [k][n] rows.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
 }
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// 16 bytes global -> shared in flight without a register round trip; zeros
+// when !valid
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

@@ -51,6 +51,7 @@ _REFUSALS = {
     -3: "grid too large",
     -4: "bf16 needs C and Cout that are multiples of 8 and 16-byte aligned rows",
     -5: "image too wide for the kernel's shared-memory patch",
+    -6: "no tensor map for the packed weights",
 }
 
 

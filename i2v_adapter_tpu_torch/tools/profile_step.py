@@ -42,11 +42,11 @@ def _category(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention (K1)"
-    if "temporal_fwd" in n:
+    if "temporal_fwd" in n or "temporal_mma" in n:
         return "temporal_attention_cs (K2)"
-    if "bwd_dq" in n or "bwd_dkv" in n:
+    if "bwd_dq" in n or "bwd_dkv" in n or "bwd_prep" in n:
         return "flash_attention_bwd (K3)"
-    if "conv3x3_mma" in n or "conv3x3_f32" in n or "pack_weights" in n:
+    if "conv3x3_wgmma" in n or "conv3x3_f32" in n or "pack_weights" in n:
         return "conv3x3_kernel (K4)"
     if "conv" in n or "implicit" in n or "winograd" in n or "fprop" in n:
         return "convolution"

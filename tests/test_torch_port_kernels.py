@@ -109,14 +109,28 @@ def test_flash_kernel_refuses_unaligned_bf16(cuda_device):
     assert A.flash_attention_bwd.launches == before
 
 
+# (fq, f, s, c, strided q): 8 heads, so d = 40, 80, 160 at C = 320, 640,
+# 1280; F = 16 and 32, Fq < F, token counts no tile divides (1, 130, 577),
+# and q as a view of a wider buffer
+TEMPORAL_CASES = [
+    (16, 16, 1024, 320, False), (16, 16, 1024, 640, False), (16, 16, 256, 1280, False),
+    (32, 32, 128, 640, False), (32, 32, 256, 1280, False), (8, 16, 576, 640, False),
+    (16, 16, 1, 640, False), (16, 16, 130, 320, False), (16, 16, 577, 1280, False),
+    (16, 16, 130, 640, True), (12, 20, 77, 640, True),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fq,f,s", [(16, 16, 1024), (8, 16, 576), (32, 32, 128)])
-def test_temporal_kernel_matches_plain_on_card(cuda_device, fq, f, s, dtype):
+@pytest.mark.parametrize("fq,f,s,c,strided", TEMPORAL_CASES)
+def test_temporal_kernel_matches_plain_on_card(cuda_device, fq, f, s, c, strided, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    q = torch.randn(2, fq, s, 640, generator=g, device=cuda_device).to(dtype)
-    k = torch.randn(2, f, s, 640, generator=g, device=cuda_device).to(dtype)
-    v = torch.randn(2, f, s, 640, generator=g, device=cuda_device).to(dtype)
+    if strided:
+        q = torch.randn(2, fq, s, 2 * c, generator=g, device=cuda_device).to(dtype)[..., c:]
+    else:
+        q = torch.randn(2, fq, s, c, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(2, f, s, c, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(2, f, s, c, generator=g, device=cuda_device).to(dtype)
     before = A.temporal_attention_cs.launches
     got = A.temporal_attention_cs(q, k, v, 8)
     assert A.temporal_attention_cs.launches == before + 1
@@ -250,11 +264,15 @@ def _conv_inputs(dev, b, h, w, c, co, dtype, seed, groups=8):
 
 CONV_SHAPES = [
     (2, 12, 8, 136, 264),   # ragged: H != W, channel tails in both tile dims
-    (4, 8, 8, 320, 640),    # a 128-pixel tile spans two images
-    (9, 4, 4, 64, 96),      # ... eight images, and ends inside one
-    (2, 64, 64, 320, 320),  # the halo is as large as the tile
+    (4, 8, 8, 320, 640),    # a 128-position tile spans two images; Cout 640: a partial n256 tile
+    (9, 4, 4, 64, 96),      # ... several images, and ends inside one
+    (2, 64, 64, 320, 320),  # the halo is as large as the tile; Cout 320: n160 tiles
     (1, 5, 3, 8, 8),
-    (1, 3, 260, 16, 16),    # so wide that a thread stages several pixel rows per step
+    (1, 3, 260, 16, 16),    # so wide that only two pixel buffers fit
+    (8, 4, 4, 1280, 1280),  # H4: a tile spans several images; n256 tiles
+    (2, 8, 8, 2560, 1280),  # H8, 40 channel blocks
+    (2, 16, 16, 1280, 1280),
+    (2, 16, 16, 640, 320),
 ]
 
 
