@@ -17,17 +17,26 @@ Phases, one JSON line each, in order:
                    attention kernels K1-K3, the fused GroupNorm-apply +
                    SiLU + 3x3 conv K4 at every resnet shape, K1 on
                    row-major storage (the reference's K5), K2 forced below
-                   128 tokens (its K6) and the int8 matmul K7 (exact)
+                   128 tokens (its K6), the int8 matmul K7 (exact) at the
+                   tool's shapes and the int8 downsamplers' im2col shapes
+                   (with its dequantising epilogue), and the int8 3x3 conv
+                   at every UNet and VAE-decoder site of the serving default
+                   (int32 equal to the plain version, the dequantised output
+                   within a bf16 rounding)
 4. ``unet``     -- one full-width (SD1.5) VideoUNet evaluation, kernels vs
                    plain attention, PSNR between the two; the same weights
                    with ``conv_impl='pallas'`` (every resnet stage through
                    K4) against ``'auto'``; the temporal kernel forced at
-                   every site against ``'auto'``
+                   every site against ``'auto'``; with int8 convs (the
+                   serving default) through the kernels against the plain
+                   int8 convs, and against the exact convs (reported)
 5. ``layouts``  -- ``flash_attention(transposed_io=False)`` on row-major
                    operands at the serving sites, against the default layout
 6. ``pipeline`` -- two image-to-video requests through I2VAdapterPipeline at
                    512x512, 16 frames, CFG 7.5, IP-Adapter, bf16, seeded
-                   random weights, and one more with ``conv_impl='pallas'``;
+                   random weights, one more with ``conv_impl='pallas'``, and
+                   the serving default ``PipelineConfig()`` (int8 convs) on
+                   the same weights, once for its latents and once decoded;
                    launch counts checked against the config
 7. ``train``    -- the adapter training step at the reference workload
                    (``reference_train_config``: SD1.5 widths, 2 clips x 16
@@ -100,9 +109,10 @@ PALLAS_TRAIN_STEPS = 2
 # first-step loss of the conv_impl='pallas' train run vs the 'auto' run's on
 # the same weights and draws: the two differ by bf16 rounding of 44 convs
 PALLAS_LOSS_REL_MAX = 0.02
-# the counted kernel wrappers (K1, K3, K2, K4, K7)
+# the counted kernel wrappers (K1, K3, K2, K4, K7, the int8 3x3 conv and its
+# weight quantiser)
 KERNELS = ("flash_attention", "flash_attention_bwd", "temporal_attention_cs", "conv3x3_kernel",
-           "int8_matmul")
+           "int8_matmul", "int8_conv3x3_kernel", "quantize_weight")
 
 
 def emit(obj) -> None:
@@ -147,17 +157,18 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 def launch_counts() -> dict:
     """Launches of every counted kernel wrapper since the last reset."""
-    from i2v_adapter_tpu_torch.ops import attention, conv3x3, profile_int8_dense
+    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
 
     return {**attention.launch_counts(), **conv3x3.launch_counts(),
-            "int8_matmul": profile_int8_dense.int8_matmul.launches}
+            "int8_matmul": profile_int8_dense.int8_matmul.launches, **int8.launch_counts()}
 
 
 def reset_launch_counts() -> None:
-    from i2v_adapter_tpu_torch.ops import attention, conv3x3, profile_int8_dense
+    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
 
     attention.reset_launch_counts()
     conv3x3.reset_launch_counts()
+    int8.reset_launch_counts()
     profile_int8_dense.int8_matmul.launches = 0
 
 
@@ -202,13 +213,10 @@ def launches_per_unet_eval(ucfg, latent: int, cross_frame: bool, flash_min: int 
     return flash, temporal
 
 
-def conv_sites(ucfg, latent: int):
-    """``[(H, C, Cout, launches)]``: every distinct shape that one VideoUNet
-    evaluation with ``conv_impl='pallas'`` gives K4 (two fused convs per
-    resnet: C -> Cout and Cout -> Cout at the block's resolution H = W), with
-    how often it is launched; empty under the other impls."""
-    if ucfg.conv_impl != "pallas":
-        return []
+def _resnet_conv_sites(ucfg, latent: int) -> dict:
+    """``{(H, C, Cout): launches}``: the 3x3 convs of one VideoUNet
+    evaluation's 22 resnets (two per resnet: C -> Cout and Cout -> Cout at
+    the block's resolution H = W)."""
     sites, chans, n = {}, ucfg.block_out_channels, ucfg.num_blocks
 
     def resnet(h, cin, cout):
@@ -230,7 +238,79 @@ def conv_sites(ucfg, latent: int):
         for j in range(ucfg.layers_per_block + 1):
             resnet(latent >> (n - 1 - i), (x_ch if j == 0 else out) + skips.pop(), out)
         x_ch = out
+    return sites
+
+
+def conv_sites(ucfg, latent: int):
+    """``[(H, C, Cout, launches)]``: every distinct shape that one VideoUNet
+    evaluation with ``conv_impl='pallas'`` gives K4 (the resnet convs), with
+    how often it is launched; empty under the other impls and under int8,
+    which wins over the fused conv."""
+    if ucfg.conv_impl != "pallas" or ucfg.int8_conv:
+        return []
+    return [(h, c, co, count) for (h, c, co), count in _resnet_conv_sites(ucfg, latent).items()]
+
+
+def int8_unet_sites(ucfg, latent: int):
+    """``[(H, C, Cout, launches)]``: the stride-1 int8 convs of one VideoUNet
+    evaluation under ``int8_conv`` (the int8 conv kernel's shapes): the
+    resnet convs, and each up block's upsample conv at the doubled
+    resolution (47 at SD1.5 width)."""
+    sites = _resnet_conv_sites(ucfg, latent)
+    chans, n = ucfg.block_out_channels, ucfg.num_blocks
+    for i, out in enumerate(reversed(chans)):
+        if i < n - 1:
+            key = (latent >> (n - 2 - i), out, out)
+            sites[key] = sites.get(key, 0) + 1
     return [(h, c, co, count) for (h, c, co), count in sites.items()]
+
+
+def int8_downsample_sites(ucfg, latent: int):
+    """``[(H, C, Cout, launches)]``: the stride-2 int8 convs of one
+    evaluation under ``int8_conv`` (input resolution H), each an int8 im2col
+    and one K7 launch of M = B*(H/2)^2, K = 9*C, N = Cout."""
+    chans = ucfg.block_out_channels
+    return [(latent >> i, chans[i], chans[i], 1) for i in range(ucfg.num_blocks - 1)]
+
+
+def int8_decoder_sites(vcfg, latent: int):
+    """``[(H, C, Cout, launches)]``: the int8 convs of one VAE decode under
+    ``int8_decode`` from ``latent``-sized latents: the mid block's and up
+    blocks' resnet convs and the upsample convs (31 at SD1.5 width)."""
+    rev = tuple(reversed(vcfg.block_out_channels))
+    sites = {(latent, rev[0], rev[0]): 4}
+    cin = rev[0]
+    for i, ch in enumerate(rev):
+        h = latent << i
+        for _ in range(vcfg.layers_per_block + 1):
+            for key in ((h, cin, ch), (h, ch, ch)):
+                sites[key] = sites.get(key, 0) + 1
+            cin = ch
+        if i < len(rev) - 1:
+            key = (h * 2, ch, ch)
+            sites[key] = sites.get(key, 0) + 1
+    return [(h, c, co, count) for (h, c, co), count in sites.items()]
+
+
+def clip_denoise_steps(steps: int = 25, strength: float = 0.9) -> int:
+    """Denoise steps of a serving clip (BASELINE config 2: 25 DDIM steps cut
+    by strength 0.9)."""
+    from i2v_adapter_tpu_torch.config import SchedulerConfig
+    from i2v_adapter_tpu_torch.schedulers import ddim_schedule_arrays
+
+    return len(ddim_schedule_arrays(SchedulerConfig(), steps, strength)[0])
+
+
+def int8_launches(model_cfg, latent: int) -> dict:
+    """Launches of the int8 conv kernel, of K7 and of the weight quantiser
+    (one per int8 conv of either kind) per serving UNet evaluation and per
+    decode, under the serving default."""
+    ucfg = model_cfg.unet.replace(int8_conv=True)
+    convs = sum(n for *_, n in int8_unet_sites(ucfg, latent))
+    downs = sum(n for *_, n in int8_downsample_sites(ucfg, latent))
+    dec = sum(n for *_, n in int8_decoder_sites(model_cfg.vae, latent))
+    return {"per_eval": {"int8_conv3x3_kernel": convs, "int8_matmul": downs, "quantize_weight": convs + downs},
+            "per_decode": {"int8_conv3x3_kernel": dec, "int8_matmul": 0, "quantize_weight": dec}}
 
 
 def conv_launches_per_unet_eval(ucfg) -> int:
@@ -303,8 +383,8 @@ def phase_build(rehearse: bool) -> None:
     lines, spills, injected, kernel = [], [], {}, "?"
     name = re.compile(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|temporal_mma_kernel|temporal_fwd_kernel"
                       r"|bwd_dq_wgmma_kernel|bwd_dkv_wgmma_kernel|bwd_dq_mma_kernel|bwd_dkv_mma_kernel"
-                      r"|bwd_dq_kernel|bwd_dkv_kernel|bwd_prep_kernel|conv3x3_wgmma_kernel"
-                      r"|conv3x3_f32_kernel)I(\w*?)EE")
+                      r"|bwd_dq_kernel|bwd_dkv_kernel|bwd_prep_kernel|int8_conv3x3_wgmma_kernel"
+                      r"|int8_mm_wgmma_kernel|conv3x3_wgmma_kernel|conv3x3_f32_kernel)I(\w*?)EE")
     for r in report.values():
         for ln in r["ptxas"].splitlines():
             m = name.search(ln)
@@ -313,8 +393,6 @@ def phase_build(rehearse: bool) -> None:
                 injected[key] = injected.get(key, 0) + 1
             elif m:
                 kernel = f"{m[1]}<{m[2].replace('13__nv_bfloat16', 'bf16')}>"
-            elif "int8_mm_kernel" in ln:
-                kernel = "int8_mm_kernel"
             elif "spill" in ln or "Used" in ln:
                 lines.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
                 counts = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
@@ -540,26 +618,115 @@ def _conv_case(name, b, h, w, c, co, dev, iters, weight=0, step_weight=0, fused=
     return row, ok
 
 
-def _int8_case(name, m, k, n, dev, iters, weight):
+def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False):
     """One K7 shape: the int32 result equal to the exact product (a float64
-    matmul holds these sums exactly), then times: the kernel, that plain
-    version and ``torch._int_mm`` (the library yardstick; it needs M > 16 and
-    K, N multiples of 8, else null)."""
-    from i2v_adapter_tpu_torch.ops.profile_int8_dense import int8_matmul, int8_matmul_plain
+    matmul holds these sums exactly) with the weights in the K-major layout
+    the kernel reads (as the serving path's quantised weights are stored)
+    and in row-major storage (packed per call); then times: the kernel, that
+    plain version and ``torch._int_mm`` in both layouts (the library
+    yardstick; the faster one is ``library_ms``; it needs M > 16 and K, N
+    multiples of 8, else null).
+    ``dequant`` also checks and times the dequantising epilogue (bf16 out,
+    as the int8 downsamplers run it) against its plain version."""
+    from i2v_adapter_tpu_torch.ops.profile_int8_dense import dequantize, int8_matmul, int8_matmul_plain
 
     g = torch.Generator(device=dev).manual_seed(m + 7 * k + 13 * n)
     xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
     wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
-    got, want = int8_matmul(xq, wq), int8_matmul_plain(xq, wq)
-    diff = float((got.double() - want.double()).abs().max())
+    wq_km = wq.t().contiguous().t()
+    want = int8_matmul_plain(xq, wq)
+    got, got_rm = int8_matmul(xq, wq_km), int8_matmul(xq, wq)
+    diff = max(float((a.double() - want.double()).abs().max()) for a in (got, got_rm))
     row = {"name": name, "m": m, "k": k, "n": n, "launches_per_tool_run": weight,
-           "abs_err_int32": diff, "equal": bool(torch.equal(got, want))}
-    row["ms"] = device_ms(lambda: int8_matmul(xq, wq), iters)
+           "launches_per_eval": eval_weight, "abs_err_int32": diff,
+           "equal": bool(torch.equal(got, want) and torch.equal(got_rm, want))}
+    row["ms"] = device_ms(lambda: int8_matmul(xq, wq_km), iters)
+    row["rowmajor_ms"] = device_ms(lambda: int8_matmul(xq, wq), iters)
     row["plain_ms"] = device_ms(lambda: int8_matmul_plain(xq, wq), 2)
-    row["library_ms"] = (device_ms(lambda: torch._int_mm(xq, wq), iters)
-                         if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
+    ok_shape = m > 16 and k % 8 == 0 and n % 8 == 0
+    row["int_mm_ms"] = device_ms(lambda: torch._int_mm(xq, wq), iters) if ok_shape else None
+    row["int_mm_kmajor_ms"] = device_ms(lambda: torch._int_mm(xq, wq_km), iters) if ok_shape else None
+    row["library_ms"] = min(row["int_mm_ms"], row["int_mm_kmajor_ms"]) if ok_shape else None
     row["bound_ms"], row["bound_by"] = bound_ms(2.0 * m * k * n, m * k + k * n + 4.0 * m * n,
                                                 PEAK_INT8_OPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    ok = row["equal"]
+    if dequant:
+        xs = torch.rand((), generator=g, device=dev) * 0.01 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 0.01 + 1e-3
+        bias = torch.randn(n, generator=g, device=dev)
+        kw = dict(scale=xs, col_scale=ws, bias=bias, out_dtype=torch.bfloat16)
+        y = int8_matmul(xq, wq_km, **kw).float()
+        y_want = dequantize(want, xs, ws, bias, torch.bfloat16).float()
+        # the same fp32 operations in the same order, one rounding to bf16
+        row["dequant_abs_err"] = abs_err(y, y_want)
+        row["dequant_within_bf16_rounding"] = bool(((y - y_want).abs() <= y_want.abs() * 2.0 ** -8).all())
+        row["dequant_ms"] = device_ms(lambda: int8_matmul(xq, wq_km, **kw), iters)
+        row["dequant_bound_ms"] = bound_ms(2.0 * m * k * n, m * k + k * n + 2.0 * m * n, PEAK_INT8_OPS)[0]
+        ok = ok and row["dequant_within_bf16_rounding"]
+    return row, ok
+
+
+def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0):
+    """One int8 3x3 conv site, its weights a bf16 OIHW parameter as the
+    serving pipeline stores them: the kernel's int32 sums equal to the plain
+    version's (exact float64 products) from the same quantiser, its bf16
+    dequantised output within a bf16 rounding of the plain dequantisation;
+    then times: the kernel, the whole ``int8_conv`` op (abs-max, weight
+    quantiser, kernel), the plain version, and the exact path's bf16 cuDNN
+    conv at the same site (context: no PyTorch call computes an int8 conv,
+    so ``library_ms`` is null)."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.ops import int8 as I8
+
+    g = torch.Generator(device=dev).manual_seed(b * 131 + h * 17 + w + c * 3 + co + 5)
+    x = (torch.randn(b, h, w, c, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    param = (torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(torch.bfloat16)
+    kernel = param.permute(2, 3, 1, 0)  # the HWIO view the models pass
+    bias = (torch.randn(co, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    wq, ws = I8.quantize_weight(kernel)
+    xs = I8.activation_scale(x)
+    got32 = I8.int8_conv3x3_kernel(x, wq, xs, ws, bias, out_dtype=torch.int32)
+    want32 = I8.int8_conv_int32_plain(I8.quantize_activation(x, xs), wq)
+    got = I8.int8_conv3x3_kernel(x, wq, xs, ws, bias).float()
+    want = I8.dequantize(want32, xs, ws, bias, torch.bfloat16).float()
+    row = {"name": name, "b": b, "h": h, "w": w, "c": c, "cout": co,
+           "launches_per_clip": clip_weight, "launches_per_eval": eval_weight,
+           "equal_int32": bool(torch.equal(got32, want32)),
+           "abs_err_int32": float((got32.double() - want32.double()).abs().max()),
+           "abs_err": abs_err(got, want),
+           "within_bf16_rounding": bool(((got - want).abs() <= want.abs() * 2.0 ** -8).all())}
+    del got32, want32, got, want
+    row["ms"] = device_ms(lambda: I8.int8_conv3x3_kernel(x, wq, xs, ws, bias), iters)
+    row["op_ms"] = device_ms(lambda: I8.int8_conv(x, kernel, bias), iters)
+    row["plain_ms"] = device_ms(lambda: I8.int8_conv_plain(x, kernel, bias), 1)
+    row["cudnn_bf16_ms"] = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), param, bias, padding=1), iters)
+    row["library_ms"] = None
+    ops = 2.0 * b * h * w * 9 * c * co
+    nbytes = 2.0 * b * h * w * (c + co) + 9.0 * c * co + 8.0 * co
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row, row["equal_int32"] and row["within_bf16_rounding"]
+
+
+def _quantize_weight_case(name, c, co, dev, iters, clip_weight):
+    """The weight quantiser on a bf16 OIHW parameter of one conv shape: the
+    kernel's int8 weights and fp32 scales equal to the plain version's, and
+    times; no single PyTorch call computes it (``library_ms`` null)."""
+    from i2v_adapter_tpu_torch.ops import int8 as I8
+
+    g = torch.Generator(device=dev).manual_seed(c * 7 + co)
+    param = (torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(torch.bfloat16)
+    kernel = param.permute(2, 3, 1, 0)
+    (wq, ws), (pq, ps) = I8.quantize_weight(kernel), I8.quantize_weight_plain(kernel)
+    row = {"name": name, "c": c, "cout": co, "launches_per_clip": clip_weight,
+           "equal": bool(torch.equal(wq, pq) and torch.equal(ws, ps)),
+           "abs_err_int8": float((wq.int() - pq.int()).abs().max()), "abs_err_scale": abs_err(ws, ps)}
+    row["ms"] = device_ms(lambda: I8.quantize_weight(kernel), iters)
+    row["plain_ms"] = device_ms(lambda: I8.quantize_weight_plain(kernel), iters)
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = bound_ms(9.0 * c * co, 3.0 * 9 * c * co + 4.0 * co, PEAK_INT8_OPS)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row, row["equal"]
 
@@ -628,7 +795,7 @@ def phase_kernels(dev, rehearse: bool):
         ("forced S64 C1280", 2, 16, 16, 64, 1280, 12),
         ("forced Fq8<F16 S64 C1280", 2, 8, 16, 64, 1280, 0),
     ]
-    from i2v_adapter_tpu_torch.config import VideoUNetConfig
+    from i2v_adapter_tpu_torch.config import I2VModelConfig, VideoUNetConfig
     from i2v_adapter_tpu_torch.ops.profile_int8_dense import SHAPES as INT8_SHAPES
 
     fused_cfg = VideoUNetConfig(conv_impl="pallas")
@@ -662,6 +829,39 @@ def phase_kernels(dev, rehearse: bool):
         add("int8_matmul", _int8_case(f"{m}x{k}x{n}", m, k, n, dev, 5,
                                       weight=int(i in INT8_TOOL_SHAPES)), "int8 ")
     add("int8_matmul", _int8_case("ragged 1000x48x36", 1000, 48, 36, dev, 5, weight=0), "int8 ")
+    add("int8_matmul", _int8_case("ragged dequant 1000x48x36", 1000, 48, 36, dev, 5, dequant=True),
+        "int8 ")
+    # K7 on the serving path: the int8 downsamplers' im2col products at 512 px
+    # with CFG (32 frame-evals), M = 32*(H/2)^2, K = 9*C, N = Cout
+    serving = I2VModelConfig().replace(unet=I2VModelConfig().unet.replace(int8_conv=True))
+    for h, c, co, cnt in int8_downsample_sites(serving.unet, 64):
+        m = 32 * (h // 2) ** 2
+        add("int8_matmul", _int8_case(f"downsample H{h} {m}x{9 * c}x{co}", m, 9 * c, co, dev, 5,
+                                      eval_weight=cnt, dequant=True), "int8 ")
+    # the int8 3x3 conv at every site of a 512 px, 16-frame CFG clip: the
+    # UNet's (32 frame-evals, once per denoise step) and the VAE decoder's
+    # (16 frames, once per clip), weighted by launches per clip
+    steps = clip_denoise_steps()
+    sites = {}
+    for h, c, co, cnt in int8_unet_sites(serving.unet, 64):
+        sites[(32, h, c, co)] = [steps * cnt, cnt]
+    for h, c, co, cnt in int8_decoder_sites(serving.vae, 64):
+        sites.setdefault((16, h, c, co), [0, 0])[0] += cnt
+    weights = {}  # (C, Cout) -> the weight quantiser's launches per clip
+    for (b, h, c, co), (clip, per_eval) in sites.items():
+        part = "unet" if b == 32 else "decoder"
+        add("int8_conv3x3_kernel", _int8_conv_case(f"{part} H{h} {c}->{co}", b, h, h, c, co, dev,
+                                                   3 if h >= 256 else 5, clip, per_eval), "int8 conv ")
+        weights[(c, co)] = weights.get((c, co), 0) + clip
+    for h, c, co, cnt in int8_downsample_sites(serving.unet, 64):
+        weights[(c, co)] = weights.get((c, co), 0) + steps * cnt
+    for (c, co), clip in weights.items():
+        add("quantize_weight", _quantize_weight_case(f"weights {c}->{co}", c, co, dev, 5, clip),
+            "int8 weights ")
+    add("int8_conv3x3_kernel", _int8_conv_case("ragged 2x12x8 144->264", 2, 12, 8, 144, 264, dev, 5, 0),
+        "int8 conv ")
+    add("int8_conv3x3_kernel", _int8_conv_case("wide strips 1x6x300 64->136", 1, 6, 300, 64, 136, dev,
+                                               5, 0), "int8 conv ")
     for case in row_major_cases:
         add("flash_attention_row_major",
             _flash_case(*case[:-1], dev=dev, iters=5, weight=case[-1], row_major=True), "row-major ")
@@ -690,6 +890,22 @@ def phase_kernels(dev, rehearse: bool):
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return rows
+
+
+@contextlib.contextmanager
+def plain_int8_convs():
+    """The models' int8 convs through the plain version (``ops.int8.
+    int8_conv_plain``: exact int32 sums as float64 products) instead of the
+    kernels, for the kernels-vs-plain comparison of a whole evaluation."""
+    from i2v_adapter_tpu_torch.models import layers
+    from i2v_adapter_tpu_torch.ops.int8 import int8_conv_plain
+
+    real = layers.int8_conv
+    layers.int8_conv = int8_conv_plain
+    try:
+        yield
+    finally:
+        layers.int8_conv = real
 
 
 def phase_unet(model_cfg, dev, dtype, rehearse: bool):
@@ -734,6 +950,15 @@ def phase_unet(model_cfg, dev, dtype, rehearse: bool):
         got_forced, _, forced_counts = counted(unet)
         for m in temporal:
             m.attn_impl = "auto"
+        # the serving default's int8 convs on the same weights: kernels, then
+        # the plain int8 convs
+        unet.set_int8(True)
+        got_int8, int8_s, int8_counts = counted(unet)
+        with plain_int8_convs():
+            want_int8 = run(unet)
+        unet.set_int8(False)
+    db_int8 = psnr(got_int8.cpu().numpy(), want_int8.cpu().numpy())
+    db_int8_exact = psnr(got_int8.cpu().numpy(), got.cpu().numpy())
     db = psnr(got.cpu().numpy(), want.cpu().numpy())
     db_fused = psnr(got_fused.cpu().numpy(), got.cpu().numpy())
     db_forced = psnr(got_forced.cpu().numpy(), got.cpu().numpy())
@@ -742,22 +967,28 @@ def phase_unet(model_cfg, dev, dtype, rehearse: bool):
     expected = expected_counts(flash_attention=flash, temporal_attention_cs=temporal_auto)
     expected_fused = dict(expected, conv3x3_kernel=conv_launches_per_unet_eval(fused_cfg))
     expected_forced = dict(expected, temporal_attention_cs=temporal_all)
+    expected_int8 = dict(expected, **int8_launches(model_cfg, lat)["per_eval"])
     if rehearse:
-        expected = expected_fused = expected_forced = expected_counts()
-    finite = all(bool(torch.isfinite(t).all()) for t in (got, got_fused, got_forced))
+        expected = expected_fused = expected_forced = expected_int8 = expected_counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in (got, got_fused, got_forced, got_int8))
     line = {"phase": "unet", "latent": lat, "frames": 2, "batch": 2, "dtype": str(dtype),
             "psnr_db_kernel_vs_plain": db, "first_eval_s": kernel_s, "finite": finite,
             "launches": counts, "expected_launches": expected,
             "conv_impl_pallas": {"psnr_db_vs_auto": db_fused, "first_eval_s": fused_s,
                                  "launches": fused_counts, "expected_launches": expected_fused},
             "temporal_kernel_forced": {"psnr_db_vs_auto": db_forced, "launches": forced_counts,
-                                       "expected_launches": expected_forced}}
+                                       "expected_launches": expected_forced},
+            "int8_conv": {"psnr_db_kernels_vs_plain_int8": db_int8, "psnr_db_vs_exact_convs": db_int8_exact,
+                          "first_eval_s": int8_s, "launches": int8_counts,
+                          "expected_launches": expected_int8}}
     emit(line)
-    if not finite or min(db, db_fused, db_forced) <= PSNR_MIN:
+    if not finite or min(db, db_fused, db_forced, db_int8) <= PSNR_MIN:
         raise AssertionError(f"unet: finite={finite} psnr kernel vs plain {db}, "
-                             f"conv_impl pallas vs auto {db_fused}, forced temporal vs auto {db_forced}")
+                             f"conv_impl pallas vs auto {db_fused}, forced temporal vs auto {db_forced}, "
+                             f"int8 kernels vs plain int8 {db_int8}")
     for name, have, want_counts in (("auto", counts, expected), ("pallas", fused_counts, expected_fused),
-                                    ("forced temporal", forced_counts, expected_forced)):
+                                    ("forced temporal", forced_counts, expected_forced),
+                                    ("int8", int8_counts, expected_int8)):
         if have != want_counts:
             raise AssertionError(f"unet ({name}) launches {have} != expected {want_counts}")
     return unet, fused, forced_counts
@@ -845,6 +1076,8 @@ def phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse: bool):
     requests, counts, expected = serve(pipe, (0, 1))
     fused_requests, fused_counts, fused_expected = serve(fused_pipe, (0,))
     n_steps = len(pipe.last_timings["step_ms"])
+    int8_line, int8_counts = _serve_int8(model_cfg, pipe, image, requests[0], size, frames, steps,
+                                         dtype, dev, rehearse)
     want_shape = [1, frames, size, size, 3]
     strip = lambda rs: [{k: v for k, v in r.items() if k != "video"} for r in rs]
     line = {
@@ -865,6 +1098,7 @@ def phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse: bool):
             "conv_launches_per_unet_eval": conv_per_eval,
         },
     }
+    line["int8_serving_default"] = int8_line
     emit(line)
     for r in requests + fused_requests:
         if r["shape"] != want_shape or r["dtype"] != "uint8":
@@ -874,7 +1108,71 @@ def phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse: bool):
                              f"conv_impl='pallas' {fused_counts} != {fused_expected}")
     if not line["seeds_differ"]:
         raise AssertionError("two seeds gave the same clip")
-    return counts, fused_counts
+    if int8_line["failed"]:
+        raise AssertionError(f"pipeline, serving default (int8): {int8_line['failed']}")
+    return counts, fused_counts, int8_counts
+
+
+def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, rehearse: bool):
+    """The serving default, ``PipelineConfig()`` with its int8 convs (the
+    other settings as the exact requests), on the exact pipeline's weights:
+    seed 0 once for its latents (``output_type='latent'``) and once decoded,
+    the launch counts of each call set to 0 just before it.  The latent call
+    gives the launches per denoise step, the difference the launches per
+    decode; both are held to the config's."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+
+    pcfg = PipelineConfig(num_frames=frames, height=size, width=size, num_inference_steps=steps,
+                          guidance_scale=7.5, blur_sigma=1.0, dtype="float32" if rehearse else "bfloat16")
+    assert pcfg.int8_conv  # the serving default
+    int8_pipe = I2VAdapterPipeline(
+        model_cfg, {"unet": pipe.unet, "vae": pipe.vae, "text_encoder": pipe.text_encoder,
+                    "image_encoder": pipe.image_encoder}, pipe.tokenizer, pcfg, device=dev)
+    runs = {}
+    try:
+        for output_type in ("latent", "np"):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = int8_pipe("a cat", condition_image=image, seed=0, output_type=output_type)
+            runs[output_type] = {"seconds": time.perf_counter() - t0, "shape": list(out.shape),
+                                 "dtype": str(out.dtype), "timings": int8_pipe.last_timings,
+                                 "launches": launch_counts(), "out": out}
+    finally:
+        int8_pipe.enable_int8_conv(False)  # the shared modules back to exact convs
+    latent = size // model_cfg.vae.spatial_scale_factor
+    n_steps = len(runs["np"]["timings"]["step_ms"])
+    derived = int8_launches(model_cfg, latent)
+    per_step = {k: runs["latent"]["launches"][k] / n_steps for k in derived["per_eval"]}
+    per_decode = {k: runs["np"]["launches"][k] - runs["latent"]["launches"][k] for k in derived["per_decode"]}
+    want_step, want_decode = derived["per_eval"], derived["per_decode"]
+    if rehearse:
+        want_step = want_decode = {k: 0 for k in derived["per_eval"]}
+    failed = []
+    if per_step != {k: float(v) for k, v in want_step.items()}:
+        failed.append(f"launches per step {per_step} != {want_step}")
+    if per_decode != want_decode:
+        failed.append(f"launches per decode {per_decode} != {want_decode}")
+    if runs["np"]["shape"] != [1, frames, size, size, 3] or runs["np"]["dtype"] != "uint8":
+        failed.append(f"output {runs['np']['shape']} {runs['np']['dtype']}")
+    if runs["latent"]["shape"] != [1, frames, latent, latent, model_cfg.unet.in_channels]:
+        failed.append(f"latents {runs['latent']['shape']}")
+    exact_t = exact["timings"]
+    line = {
+        "config": "PipelineConfig() defaults: int8_conv=True",
+        "prep_ms": runs["np"]["timings"]["prep_ms"], "step_ms": runs["np"]["timings"]["step_ms"],
+        "mean_step_ms": float(np.mean(runs["np"]["timings"]["step_ms"])),
+        "decode_ms": runs["np"]["timings"]["decode_ms"],
+        "exact_seed0": {"prep_ms": exact_t["prep_ms"], "mean_step_ms": float(np.mean(exact_t["step_ms"])),
+                        "decode_ms": exact_t["decode_ms"]},
+        "latent_call": {k: v for k, v in runs["latent"].items() if k != "out"},
+        "launches_per_step": per_step, "launches_per_decode": per_decode,
+        "expected_per_step": want_step, "expected_per_decode": want_decode,
+        "psnr_db_vs_exact_convs": psnr(runs["np"]["out"], exact["video"]),
+        "finite_latents": bool(np.isfinite(runs["latent"]["out"]).all()),
+        "failed": failed,
+    }
+    return line, runs["np"]["launches"]
 
 
 def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase: str = "train",
@@ -1088,7 +1386,12 @@ SUMMARY = (
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:871", ("unet_forced_temporal",),
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
-     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("int8_tool",), "launches_per_tool_run"),
+     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "int8_tool"),
+     "launches_per_eval"),
+    ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8",), "launches_per_clip"),
+    ("quantize_weight", "quantize_weight", "quantize_weight", CSRC + "int8_conv3x3.cu",
+     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8",), "launches_per_clip"),
 )
 
 
@@ -1096,32 +1399,40 @@ def summary(rows, paths) -> dict:
     """Per kernel: launches on its main paths (each path counted from 0)
     and the launch-weighted mean per launch over its main-path shapes
     (weights: launches per serving UNet evaluation, per training step for
-    K3, per tool run for K7); for K2, K3 and K4 also the means over the
-    training step's shapes (``train_ms``, weights: launches per step)."""
+    K3, per evaluation for K7's downsample shapes, per 512 px clip for the
+    int8 conv); where a kernel also runs elsewhere, the same means over
+    those shapes: the training step's for K2, K3 and K4 (``train_ms``,
+    weights: launches per step) and the int8 tool's for K7 (``tool_ms``).
+    ``library_ms`` is null where no PyTorch call computes the function."""
     out = []
     for name, key, counter, source, replaces, on_paths, weight_key in SUMMARY:
         cases = rows[key]
-        weight = lambda r: r.get(weight_key, 0)
-        main = [r for r in cases if weight(r) > 0]
-        w = sum(weight(r) for r in main)
-        mean = lambda k: sum(r[k] * weight(r) for r in main) / w
-        bytes_side = sum(weight(r) for r in main if r["bound_by"] == "bytes")
+
+        def means(weight_key, keys):
+            main = [r for r in cases if r.get(weight_key, 0) > 0]
+            w = sum(r[weight_key] for r in main)
+            return {k: None if any(r.get(k) is None for r in main)
+                    else sum(r[k] * r[weight_key] for r in main) / w for k in keys}, main, w
+
+        m, main, w = means(weight_key, ("ms", "plain_ms", "bound_ms", "library_ms"))
+        bytes_side = sum(r[weight_key] for r in main if r["bound_by"] == "bytes")
         by_path = {p: paths[p][counter] for p in on_paths}
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(v for r in cases for k, v in r.items() if k.startswith("abs_err")),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes" if bytes_side * 2 > w else "operations",
-            "library_ms": mean("library_ms"),
+            "library_ms": m["library_ms"],
         })
-        # the same means over the 256 px training step's shapes, weighted by
-        # their launches per step, where the kernel runs there
-        train = [r for r in cases if r.get("launches_per_step", 0) > 0]
-        if train:
-            wt = sum(r["launches_per_step"] for r in train)
-            out[-1].update({f"train_{k}": sum(r[k] * r["launches_per_step"] for r in train) / wt
-                            for k in ("ms", "bound_ms", "library_ms")})
+        for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run")):
+            if other != weight_key and any(r.get(other, 0) > 0 for r in cases):
+                extra = means(other, ("ms", "bound_ms", "library_ms"))[0]
+                out[-1].update({f"{prefix}_{k}": v for k, v in extra.items()})
+        if any("dequant_ms" in r for r in main):
+            out[-1].update({k: means(weight_key, (k,))[0][k] for k in ("dequant_ms", "dequant_bound_ms")})
+        if any("cudnn_bf16_ms" in r for r in main):
+            out[-1]["cudnn_bf16_ms"] = means(weight_key, ("cudnn_bf16_ms",))[0]["cudnn_bf16_ms"]
     return {"kernels": out}
 
 
@@ -1145,7 +1456,7 @@ def main(argv=None) -> int:
     rows = phase_kernels(dev, rehearse)
     unet, fused_unet, forced_counts = phase_unet(model_cfg, dev, dtype, rehearse)
     layout_counts = phase_layouts(dev, rehearse)
-    counts, fused_counts = phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse)
+    counts, fused_counts, int8_counts = phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse)
     del unet, fused_unet
     train_state, batch, step_fn, train_counts, first_loss = phase_train(model_cfg, dev, rehearse)
     phase_gradcheck(train_state, batch, step_fn, rehearse)
@@ -1156,7 +1467,8 @@ def main(argv=None) -> int:
     tool_counts = phase_int8_tool(dev, rehearse)
     if rows is not None:
         kernels = summary(rows, {
-            "pipeline": counts, "pipeline_pallas": fused_counts, "train": train_counts,
+            "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
+            "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
         idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]

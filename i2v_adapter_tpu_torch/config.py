@@ -213,9 +213,9 @@ class PipelineConfig(_ConfigBase):
     blur_sigma: Optional[float] = None
     eta: float = 0.0
     dtype: str = "bfloat16"
-    # Serving-mode int8 convs (UNet 3x3s + VAE decoder).  Not ported yet:
-    # the port raises NotImplementedError when this is True.
+    # Serving-mode int8 convs (UNet 3x3s + VAE decoder), through ops/int8.py.
     int8_conv: bool = True
+    # Not ported yet: the pipeline refuses any value but these (off).
     encoder_cache: int = 1
     cfg_cutoff: float = 1.0
     temporal_window: int = 16

@@ -189,15 +189,9 @@ __device__ __forceinline__ float silu_fast(float t) {
   return fmaf(h, th, h);
 }
 
-// wgmma descriptors: a no-swizzle K-major operand (core matrices of 8 rows x
-// 16 bytes, lbo between neighbours in K, sbo in M/N), and a 128-byte-swizzled
-// K-major tile of 64-channel rows as TMA writes it (8-row groups 1024 B apart)
-__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return ((uint64_t)((addr & 0x3FFFF) >> 4)) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return ((uint64_t)((addr & 0x3FFFF) >> 4)) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
+// wgmma descriptors (desc_plain, desc_sw128), mbar_arrive and tma_load_2d
+// are in sm90_tiles.cuh: a no-swizzle K-major operand for the pixels, and a
+// 128-byte-swizzled K-major tile of 64-channel rows for the weights
 
 // D (64 x N, f32, registers) += A (64 x 16) . B (16 x N), both from shared
 // memory through descriptors, both K-major
@@ -223,16 +217,6 @@ __device__ __forceinline__ void wgmma_ss_acc<256>(float (&d)[128], uint64_t da, 
 
 __device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 __device__ __forceinline__ void stager_sync() { asm volatile("bar.sync 2, 96;\n" ::: "memory"); }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // [tap][Cout][C] <- OIHW: a thread reads 8 neighbouring (n, c) pairs' 72
 // contiguous values (9 x 16 bytes) and writes one 16-byte run per tap

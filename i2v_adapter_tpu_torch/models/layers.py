@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.ops.conv3x3 import gn_silu_conv3x3
+from i2v_adapter_tpu_torch.ops.int8 import int8_conv
 from i2v_adapter_tpu_torch.ops.norms import fold_gn_affine
 
 
@@ -122,9 +123,11 @@ class ResnetBlock2D(nn.Module):
     stage as GroupNorm, SiLU and the library convolution; ``'pallas'`` (the
     JAX package's name for its fused path) folds the norm's statistics and
     affine into per-(sample, channel) vectors and runs the stage as one
-    kernel, ``ops.conv3x3.gn_silu_conv3x3``.  The parameters are the same
-    ``norm1/conv1/norm2/conv2`` under every impl, so state dicts and Flax
-    trees interchange."""
+    kernel, ``ops.conv3x3.gn_silu_conv3x3``.  ``int8`` (serving) runs each
+    3x3 conv as ``ops.int8.int8_conv`` after the GroupNorm and SiLU, and wins
+    over ``conv_impl`` as in the JAX package; the 1x1 shortcut stays exact.
+    The parameters are the same ``norm1/conv1/norm2/conv2`` under every
+    setting, so state dicts and Flax trees interchange."""
 
     def __init__(
         self,
@@ -134,11 +137,13 @@ class ResnetBlock2D(nn.Module):
         groups: int = 32,
         eps: float = 1e-5,
         conv_impl: str = "auto",
+        int8: bool = False,
     ):
         super().__init__()
         if conv_impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown conv_impl: {conv_impl}")
         self.conv_impl = conv_impl
+        self.int8 = int8
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = ConvNHWC(in_channels, out_channels, 3, padding=1)
         if temb_channels is not None:
@@ -151,6 +156,8 @@ class ResnetBlock2D(nn.Module):
         self.use_shortcut = in_channels != out_channels
 
     def _norm_silu_conv(self, norm: GroupNorm, conv: ConvNHWC, h):
+        if self.int8:
+            return int8_conv(F.silu(norm(h)), conv.weight.permute(2, 3, 1, 0), conv.bias)
         if self.conv_impl != "pallas":
             return conv(F.silu(norm(h)))
         a, s = fold_gn_affine(h, norm.num_groups, norm.eps, norm.weight, norm.bias)
@@ -171,13 +178,24 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
+def _conv(conv: ConvNHWC, x, int8: bool):
+    """``conv(x)``, or its int8 version (``ops.int8.int8_conv``) on the same
+    parameters."""
+    if not int8:
+        return conv(x)
+    return int8_conv(x, conv.weight.permute(2, 3, 1, 0), conv.bias, stride=conv.stride[0],
+                     padding=conv.padding[0])
+
+
 class Downsample2D(nn.Module):
     """Stride-2 3x3 conv; ``asymmetric_pad`` is the VAE encoder's (0,1,0,1)
-    padding, the UNet pads 1 on every side."""
+    padding, the UNet pads 1 on every side.  ``int8``: the conv in int8."""
 
-    def __init__(self, in_channels: int, out_channels: int, asymmetric_pad: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, asymmetric_pad: bool = False,
+                 int8: bool = False):
         super().__init__()
         self.asymmetric_pad = asymmetric_pad
+        self.int8 = int8
         self.conv = ConvNHWC(
             in_channels, out_channels, 3, stride=2, padding=0 if asymmetric_pad else 1
         )
@@ -185,16 +203,25 @@ class Downsample2D(nn.Module):
     def forward(self, x):
         if self.asymmetric_pad:
             x = F.pad(x, (0, 0, 0, 1, 0, 1))
-        return self.conv(x)
+        return _conv(self.conv, x, self.int8)
 
 
 class Upsample2D(nn.Module):
-    """Nearest-neighbour 2x upsample then 3x3 conv."""
+    """Nearest-neighbour 2x upsample then 3x3 conv (in int8 with ``int8``)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.conv = ConvNHWC(in_channels, out_channels, 3, padding=1)
 
     def forward(self, x):
         x = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2.0, mode="nearest")
-        return self.conv(x.permute(0, 2, 3, 1))
+        return _conv(self.conv, x.permute(0, 2, 3, 1), self.int8)
+
+
+def set_int8(module: nn.Module, enabled: bool) -> None:
+    """Switch every ResnetBlock2D / Downsample2D / Upsample2D under
+    ``module`` to int8 (or back to exact) convs; parameters are untouched."""
+    for m in module.modules():
+        if isinstance(m, (ResnetBlock2D, Downsample2D, Upsample2D)):
+            m.int8 = enabled

@@ -28,6 +28,7 @@ from i2v_adapter_tpu_torch.models.layers import (
     ResnetBlock2D,
     TimestepEmbedding,
     Upsample2D,
+    set_int8,
     timestep_embedding,
 )
 from i2v_adapter_tpu_torch.models.temporal import TemporalSelfAttention, TemporalTransformer
@@ -36,8 +37,6 @@ from i2v_adapter_tpu_torch.models.temporal import TemporalSelfAttention, Tempora
 def _check_ported(cfg: VideoUNetConfig) -> None:
     """Refuse the configurations whose code paths are not ported yet."""
     missing = []
-    if cfg.int8_conv:
-        missing.append("int8_conv (ROADMAP: int8 serving convs)")
     if cfg.ip_variant != "standard":
         missing.append(f"ip_variant={cfg.ip_variant!r} (ROADMAP: plus/full_face IP heads)")
     if cfg.freeu is not None:
@@ -91,14 +90,14 @@ class DownBlock(nn.Module):
         for i in range(num_layers):
             self.add_module(f"resnets_{i}", ResnetBlock2D(
                 in_channels if i == 0 else out_channels, out_channels, cfg.time_embed_dim,
-                cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl,
+                cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl, cfg.int8_conv,
             ))
             if has_attention:
                 self.add_module(f"attentions_{i}", _spatial(cfg, out_channels, attn_impl))
             if self.use_motion:
                 self.add_module(f"motion_modules_{i}", _motion(cfg, out_channels, attn_impl))
         if add_downsample:
-            self.downsamplers_0 = Downsample2D(out_channels, out_channels)
+            self.downsamplers_0 = Downsample2D(out_channels, out_channels, int8=cfg.int8_conv)
 
     def forward(self, x, temb, ctx, cross_frame: bool, num_frames: int):
         skips = []
@@ -129,14 +128,14 @@ class UpBlock(nn.Module):
         for i, cin in enumerate(resnet_in):
             self.add_module(f"resnets_{i}", ResnetBlock2D(
                 cin, out_channels, cfg.time_embed_dim, cfg.norm_num_groups, cfg.norm_eps,
-                cfg.conv_impl,
+                cfg.conv_impl, cfg.int8_conv,
             ))
             if has_attention:
                 self.add_module(f"attentions_{i}", _spatial(cfg, out_channels, attn_impl))
             if self.use_motion:
                 self.add_module(f"motion_modules_{i}", _motion(cfg, out_channels, attn_impl))
         if add_upsample:
-            self.upsamplers_0 = Upsample2D(out_channels, out_channels)
+            self.upsamplers_0 = Upsample2D(out_channels, out_channels, int8=cfg.int8_conv)
 
     def forward(self, x, skips, temb, ctx, cross_frame: bool, num_frames: int):
         for i in range(self.num_layers):
@@ -160,12 +159,14 @@ class MidBlock(nn.Module):
         super().__init__()
         self.use_motion = cfg.use_motion_modules and cfg.use_motion_mid_block
         self.resnets_0 = ResnetBlock2D(channels, channels, cfg.time_embed_dim,
-                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl)
+                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl,
+                                       cfg.int8_conv)
         self.attentions_0 = _spatial(cfg, channels, attn_impl)
         if self.use_motion:
             self.motion_modules_0 = _motion(cfg, channels, attn_impl)
         self.resnets_1 = ResnetBlock2D(channels, channels, cfg.time_embed_dim,
-                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl)
+                                       cfg.norm_num_groups, cfg.norm_eps, cfg.conv_impl,
+                                       cfg.int8_conv)
 
     def forward(self, x, temb, ctx, cross_frame: bool, num_frames: int):
         x = self.resnets_0(x, temb)
@@ -224,6 +225,13 @@ class VideoUNet(nn.Module):
                 x_ch = out
             self.conv_norm_out = GroupNorm(cfg.norm_num_groups, chans[0], cfg.norm_eps)
             self.conv_out = ConvNHWC(chans[0], cfg.out_channels, 3, padding=1)
+
+    def set_int8(self, enabled: bool) -> None:
+        """Serving-mode int8 for the resnet / down / upsample 3x3 convs
+        (``config.int8_conv``, set at construction); ``conv_in`` and
+        ``conv_out`` stay exact.  The parameters are unchanged."""
+        self.config = self.config.replace(int8_conv=enabled)
+        set_int8(self, enabled)
 
     def set_attn_impl(self, impl: str) -> None:
         """Route every attention site through ``impl`` ("auto", "kernel" or

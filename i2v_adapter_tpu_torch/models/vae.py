@@ -18,6 +18,7 @@ from i2v_adapter_tpu_torch.models.layers import (
     Linear,
     ResnetBlock2D,
     Upsample2D,
+    set_int8,
 )
 
 
@@ -43,8 +44,8 @@ class VAEAttention(nn.Module):
         return x + self.to_out(y).reshape(b, h, w, c)
 
 
-def _resnet(cin, cout, cfg):
-    return ResnetBlock2D(cin, cout, None, cfg.norm_num_groups, 1e-6)
+def _resnet(cin, cout, cfg, int8: bool = False):
+    return ResnetBlock2D(cin, cout, None, cfg.norm_num_groups, 1e-6, int8=int8)
 
 
 class Encoder(nn.Module):
@@ -84,17 +85,18 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         rev = tuple(reversed(cfg.block_out_channels))
+        int8 = cfg.int8_decode
         self.conv_in = ConvNHWC(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_resnets_0 = _resnet(rev[0], rev[0], cfg)
+        self.mid_resnets_0 = _resnet(rev[0], rev[0], cfg, int8)
         self.mid_attn = VAEAttention(rev[0], cfg.norm_num_groups)
-        self.mid_resnets_1 = _resnet(rev[0], rev[0], cfg)
+        self.mid_resnets_1 = _resnet(rev[0], rev[0], cfg, int8)
         cin = rev[0]
         for i, ch in enumerate(rev):
             for j in range(cfg.layers_per_block + 1):
-                self.add_module(f"up_{i}_resnets_{j}", _resnet(cin, ch, cfg))
+                self.add_module(f"up_{i}_resnets_{j}", _resnet(cin, ch, cfg, int8))
                 cin = ch
             if i < len(rev) - 1:
-                self.add_module(f"up_{i}_upsample", Upsample2D(ch, ch))
+                self.add_module(f"up_{i}_upsample", Upsample2D(ch, ch, int8=int8))
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, rev[-1], 1e-6)
         self.conv_out = ConvNHWC(rev[-1], cfg.out_channels, 3, padding=1)
 
@@ -111,18 +113,24 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """encode -> (mean, logvar) moments; decode(z) -> image.  Channel-last."""
+    """encode -> (mean, logvar) moments; decode(z) -> image.  Channel-last.
+    ``config.int8_decode`` (serving) runs the decoder's mid and up resnets'
+    3x3 convs and its upsample convs in int8; the encoder stays exact."""
 
     def __init__(self, config: VAEConfig, device: DeviceLike = None):
         super().__init__()
-        if config.int8_decode:
-            raise NotImplementedError("not ported yet: int8_decode (ROADMAP: int8 serving convs)")
         self.config = config
         with torch.device(resolve_device(device)):
             self.encoder = Encoder(config)
             self.decoder = Decoder(config)
             self.quant_conv = ConvNHWC(2 * config.latent_channels, 2 * config.latent_channels, 1)
             self.post_quant_conv = ConvNHWC(config.latent_channels, config.latent_channels, 1)
+
+    def set_int8(self, enabled: bool) -> None:
+        """Switch the decoder's int8 convs (``config.int8_decode``) on or
+        off; the parameters are unchanged."""
+        self.config = self.config.replace(int8_decode=enabled)
+        set_int8(self.decoder, enabled)
 
     def encode_moments(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         moments = self.quant_conv(self.encoder(x))

@@ -8,12 +8,19 @@ it times three ways to the same product:
   int8 library  -- dynamic per-tensor quantisation + ``torch._int_mm`` +
                    dequantisation; the library yardstick, used nowhere else
   int8 kernel   -- ``int8_pallas``: the same quantisation around K7
-                   (``csrc/int8_matmul.cu``), a hand-written mma.sync int8
-                   matmul with int32 accumulation
+                   (``csrc/int8_matmul.cu``), a hand-written int8 ``wgmma``
+                   matmul with int32 accumulation and a dequantising epilogue
 
 The reference's fourth column, an int8 1x1 convolution, has no PyTorch
 counterpart on CUDA without a package of finished kernels (cuDNN's int8
 convolutions are not reachable from ``F.conv2d``), so it is left out.
+
+Weight layout.  For 8-bit operands the tensor cores read both operands
+K-major, so K7 wants the (K, N) weight stored K-contiguous, as
+``wq.t().contiguous().t()``.  Weights are static, so the tool prepares that
+layout once, outside the timed calls, and times ``torch._int_mm`` in both
+layouts (row-major ``wq`` and the K-major one) beside K7 on the K-major
+one; K7 on the row-major operand packs it per call, inside its time.
 
     python -m i2v_adapter_tpu_torch.ops.profile_int8_dense [--shapes N] [--device cpu]
 
@@ -33,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -56,7 +64,8 @@ SHAPES = [
     (32 * 256, 5120, 1280),   # L2 ff out
 ]
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+_OUT_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -68,32 +77,65 @@ def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ wq.double()).to(torch.int32)
 
 
-def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """K7: ``(M, K) int8 @ (K, N) int8 -> (M, N) int32``."""
+def dequantize(y, scale, col_scale, bias, dtype):
+    """``(float(y) * (scale * col_scale) + float(bias)).to(dtype)``, the
+    epilogue of K7's dequantising mode (bias optional)."""
+    out = y.float() * (scale * col_scale)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(dtype)
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, *, scale: Optional[torch.Tensor] = None,
+                col_scale: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K7: ``(M, K) int8 @ (K, N) int8 -> (M, N) int32``; with ``scale`` (a
+    0-d fp32 tensor, the activation's) and ``col_scale`` (N,) the
+    dequantised ``y * (scale * col_scale) + bias`` in ``out_dtype`` (default
+    bf16) from the same launch.  ``wq`` stored K-contiguous (a transposed
+    view of an (N, K) tensor) is read in place; another layout is packed to
+    it first, inside this call."""
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"int8_matmul: int8 operands, got {xq.dtype} and {wq.dtype}")
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0] or xq.device != wq.device:
         raise ValueError(f"int8_matmul: shapes {tuple(xq.shape)} @ {tuple(wq.shape)}")
+    if (scale is None) != (col_scale is None):
+        raise ValueError("int8_matmul: scale and col_scale come together")
+    dequant = scale is not None
+    out_dtype = (out_dtype or torch.bfloat16) if dequant else torch.int32
     if xq.device.type == "cpu":
-        return int8_matmul_plain(xq, wq)
+        y = int8_matmul_plain(xq, wq)
+        return dequantize(y, scale, col_scale, bias, out_dtype) if dequant else y
     if xq.device.type != "cuda":
         raise RuntimeError(f"int8_matmul: unsupported device {xq.device}")
-    if not (xq.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("int8_matmul: operands must be contiguous")
+    if out_dtype not in _OUT_CODES or (dequant and out_dtype == torch.int32):
+        raise TypeError(f"int8_matmul: output dtype {out_dtype} not supported")
     m, k = xq.shape
     n = wq.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    xq = xq.contiguous()
+    wt = wq.t().contiguous()  # (N, K) K-contiguous: a view when wq is stored so
+    if dequant:
+        scale = scale.float().reshape(())
+        col_scale = col_scale.float().contiguous()
+        bias = None if bias is None else bias.float().contiguous()
+    # the kernel's TMA stores need 16-byte rows: a width that is not gets a
+    # padded row pitch, and the result is the (M, N) view of it
+    per16 = 16 // (2 if out_dtype == torch.bfloat16 else 4)
+    ldo = -(-n // per16) * per16
+    out = torch.empty((m, ldo), dtype=out_dtype, device=xq.device)
     err = _build.entry("int8_matmul", "int8_matmul", _ARGTYPES)(
-        xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k, n,
+        xq.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k, n, ldo, _OUT_CODES[out_dtype],
+        scale.data_ptr() if dequant else None, col_scale.data_ptr() if dequant else None,
+        bias.data_ptr() if bias is not None else None,
         torch.cuda.current_stream(xq.device).cuda_stream,
     )
     if err < 0:
-        raise ValueError(f"int8_matmul: refused (code {err}): K must be a multiple of 16, N of 4, "
-                         f"bases 16-byte aligned, M below 65536*128; got {m}x{k}x{n}")
+        raise ValueError(f"int8_matmul: refused (code {err}): K must be a multiple of 16 and the "
+                         f"bases 16-byte aligned; got {m}x{k}x{n}")
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed with CUDA error {err}")
     int8_matmul.launches += 1
-    return out
+    return out if ldo == n else out[:, :n]
 
 
 int8_matmul.launches = 0
@@ -115,11 +157,10 @@ def bf16_dot(x, w, ws=None):
 
 
 def int8_pallas(x, wq, ws):
-    """Dynamic per-tensor activation scale, K7, per-column dequantisation;
-    bf16 result (the reference's ``int8_pallas``)."""
+    """Dynamic per-tensor activation scale, K7 with its per-column
+    dequantising epilogue; bf16 result (the reference's ``int8_pallas``)."""
     xq, xs = _quantize_activation(x)
-    y = int8_matmul(xq, wq)
-    return (y.float() * (xs * ws)).to(torch.bfloat16)
+    return int8_matmul(xq, wq, scale=xs, col_scale=ws, out_dtype=torch.bfloat16)
 
 
 def int8_library(x, wq, ws):
@@ -150,9 +191,10 @@ def _host_ms(fn, iters: int) -> float:
 
 def run(shapes, device, iters: int = 10, seed: int = 0):
     """One dict per shape: times of the three columns and of the bare
-    matmuls (K7 and ``torch._int_mm`` on pre-quantised operands), K7's
-    equality with the exact product, and the composite's error against the
-    bf16 product.  On the CPU the times are host times of the plain math."""
+    matmuls (K7 on the K-major weights prepared in setup and on row-major
+    ones, packed per call; ``torch._int_mm`` on both), K7's equality with the
+    exact product, and the composite's error against the bf16 product.  On
+    the CPU the times are host times of the plain math."""
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     timed = _device_ms if on_card else _host_ms
@@ -162,24 +204,28 @@ def run(shapes, device, iters: int = 10, seed: int = 0):
         x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
         wf = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
         wq, ws = quantize_weight(wf)
+        wq_km = wq.t().contiguous().t()  # the K-major layout, prepared once
         wb = wf.to(torch.bfloat16)
         xq, _ = _quantize_activation(x)
         before = int8_matmul.launches
-        got = int8_matmul(xq, wq)
+        got = int8_matmul(xq, wq_km)
         launched = int8_matmul.launches - before
+        want = int8_matmul_plain(xq, wq)
         row = {"m": m, "k": k, "n": n, "flops": 2 * m * k * n,
-               "exact": bool(torch.equal(got, int8_matmul_plain(xq, wq))),
+               "exact": bool(torch.equal(got, want) and torch.equal(int8_matmul(xq, wq), want)),
                "launched_kernel": launched == 1}
         ref = (x.float() @ wb.float()) if not on_card else (x @ wb).float()
-        y = int8_pallas(x, wq, ws).float()
+        y = int8_pallas(x, wq_km, ws).float()
         row["int8_vs_bf16_rel_err"] = float((y - ref).abs().max() / ref.abs().max())
         unit = "ms" if on_card else "host_ms"
         row[f"bf16_{unit}"] = timed(lambda: bf16_dot(x, wb), iters)
-        row[f"int8_kernel_{unit}"] = timed(lambda: int8_pallas(x, wq, ws), iters)
-        row[f"k7_matmul_{unit}"] = timed(lambda: int8_matmul(xq, wq), iters)
+        row[f"int8_kernel_{unit}"] = timed(lambda: int8_pallas(x, wq_km, ws), iters)
+        row[f"k7_matmul_{unit}"] = timed(lambda: int8_matmul(xq, wq_km), iters)
+        row[f"k7_matmul_rowmajor_{unit}"] = timed(lambda: int8_matmul(xq, wq), iters)
         if on_card:
-            row["int8_library_ms"] = timed(lambda: int8_library(x, wq, ws), iters)
+            row["int8_library_ms"] = timed(lambda: int8_library(x, wq_km, ws), iters)
             row["int_mm_ms"] = timed(lambda: torch._int_mm(xq, wq), iters)
+            row["int_mm_kmajor_ms"] = timed(lambda: torch._int_mm(xq, wq_km), iters)
         rows.append(row)
     return rows
 

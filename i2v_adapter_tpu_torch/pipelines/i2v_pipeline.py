@@ -12,9 +12,13 @@ Counterpart of the JAX ``I2VAdapterPipeline``:
 
 ``_build_parts`` returns the same three functions as the JAX package's
 (prep, step, decode); ``__call__`` drives them eagerly on the device.
-Not ported yet (ROADMAP): ``from_pretrained``, meshes, ``encoder_cache``,
-``cfg_cutoff``, temporal tiling, ``unet_chunk``, sliced/tiled decode, GIF
-export and int8 serving convs.
+
+The serving default, ``PipelineConfig.int8_conv=True``, runs the UNet's
+resnet / down / upsample 3x3 convs and the VAE decoder's convs in int8
+(``ops.int8``); ``enable_int8_conv(False)`` restores exact convs on the
+same weights.  Not ported yet (ROADMAP): ``from_pretrained``, meshes,
+``encoder_cache`` and ``cfg_cutoff`` (refused unless off), temporal tiling,
+``unet_chunk``, sliced/tiled decode and GIF export.
 """
 
 from __future__ import annotations
@@ -56,10 +60,19 @@ class I2VAdapterPipeline:
         pipeline_config: PipelineConfig = PipelineConfig(),
         device: DeviceLike = None,
     ):
-        if pipeline_config.int8_conv:
+        unported = []
+        if pipeline_config.encoder_cache != 1:
+            unported.append(f"encoder_cache={pipeline_config.encoder_cache} (only 1, off)")
+        if pipeline_config.cfg_cutoff != 1.0:
+            unported.append(f"cfg_cutoff={pipeline_config.cfg_cutoff} (only 1.0, off)")
+        if unported:
             raise NotImplementedError(
-                "PipelineConfig.int8_conv=True is not ported yet (ROADMAP: int8 "
-                "serving convs); pass PipelineConfig(int8_conv=False) for exact convs"
+                "not ported yet (ROADMAP: serving extras): " + "; ".join(unported))
+        if pipeline_config.int8_conv:
+            # serving default: int8 UNet / VAE-decoder convs on the same weights
+            model_config = model_config.replace(
+                unet=model_config.unet.replace(int8_conv=True),
+                vae=model_config.vae.replace(int8_decode=True),
             )
         self.device = resolve_device(device)
         self.dtype = DTYPES[pipeline_config.dtype]
@@ -81,7 +94,22 @@ class I2VAdapterPipeline:
     def _module(self, value, cls, cfg) -> nn.Module:
         if not isinstance(value, nn.Module):
             value = load_flax_params(cls(cfg, device=self.device), value)
+        elif hasattr(value, "set_int8"):
+            value.set_int8(cfg.int8_conv if cls is VideoUNet else cfg.int8_decode)
         return value.to(self.device, self.dtype).eval()
+
+    def enable_int8_conv(self, enabled: bool = True) -> None:
+        """Serving-mode int8 convs: the UNet's resnet / down / upsample 3x3s
+        (``VideoUNetConfig.int8_conv``) and the VAE decoder's convs
+        (``VAEConfig.int8_decode``).  On by default
+        (``PipelineConfig.int8_conv``); ``False`` restores exact convs.  The
+        weights are unchanged, so nothing is reloaded."""
+        self.config = self.config.replace(
+            unet=self.config.unet.replace(int8_conv=enabled),
+            vae=self.config.vae.replace(int8_decode=enabled),
+        )
+        self.unet.set_int8(enabled)
+        self.vae.set_int8(enabled)
 
     # ------------------------------------------------------------------
     # the three parts
@@ -105,9 +133,10 @@ class I2VAdapterPipeline:
             -> (latents, consts)`` with consts = (cond_latents, text_states,
             image_embeds); the posterior noise, the prior's mask draw and
             noise come from ``generator`` unless passed in.
-        ``step_fn(consts, latents, t, t_prev, generator=None) -> latents``:
-            first-frame clamp, CFG-doubled UNet, guidance, DDIM update (the
-            generator draws the eta noise when ``eta > 0``).
+        ``step_fn(consts, latents, t, t_prev, generator=None, *,
+            eta_noise=None) -> latents``: first-frame clamp, CFG-doubled
+            UNet, guidance, DDIM update (with ``eta > 0`` the noise is
+            ``eta_noise`` when given, else drawn from the generator).
         ``decode_fn(consts, latents) -> (B, F, H, W, 3)`` float video."""
         cfg, pcfg = self.config, self.pipe_config
         dev, dtype, schedule = self.device, self.dtype, self.schedule
@@ -150,7 +179,7 @@ class I2VAdapterPipeline:
             )
             return latents, (cond_latents, text_states, image_embeds)
 
-        def step_fn(consts, latents, t, tp, generator=None):
+        def step_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
             cond_latents, text_states, image_embeds = consts
             if has_condition:
                 latents = latents.clone()
@@ -163,8 +192,9 @@ class I2VAdapterPipeline:
             if use_cfg:
                 uncond, text = noise_pred.chunk(2)
                 noise_pred = uncond + guidance_scale * (text - uncond)
-            eta_noise = None
-            if pcfg.eta > 0.0:
+            if pcfg.eta <= 0.0:
+                eta_noise = None
+            elif eta_noise is None:
                 eta_noise = torch.randn(latents.shape, generator=generator, device=dev)
             return ddim_step(
                 schedule, noise_pred, torch.full((batch,), int(t)),
@@ -206,9 +236,14 @@ class I2VAdapterPipeline:
         seed: int = 0,
         output_type: str = "np",
     ):
-        """Generate clips: (B, F, H, W, 3) uint8 (``output_type='np'``) or
-        float32 in [-1, 1] (``'float'``).  Phase times of the call (ms,
-        synchronised on the GPU) are left in ``self.last_timings``."""
+        """Generate clips: (B, F, H, W, 3) uint8 (``output_type='np'``),
+        float32 in [-1, 1] (``'pt'`` or ``'float'``), or the final latents
+        without a decode (``'latent'``: (B, F, h, w, 4) float32, the first
+        frame clamped to the condition, still times ``scaling_factor``).
+        Phase times of the call (ms, synchronised on the GPU) are left in
+        ``self.last_timings``; ``'latent'`` has no ``decode_ms``."""
+        if output_type not in ("np", "pt", "float", "latent"):
+            raise ValueError(f"output_type must be 'np', 'pt', 'float' or 'latent', got {output_type!r}")
         pcfg = self.pipe_config
         num_frames = num_frames or pcfg.num_frames
         height = height or pcfg.height
@@ -266,14 +301,20 @@ class I2VAdapterPipeline:
             t2 = self._sync()
             self.last_timings["step_ms"].append((t2 - t1) * 1e3)
             t1 = t2
-        video = decode_fn(consts, latents)
-        self.last_timings["decode_ms"] = (self._sync() - t1) * 1e3
-        video = video.cpu().numpy()
-        if not np.isfinite(video).all():
+        if output_type == "latent":
+            if has_condition:
+                latents = latents.clone()
+                latents[:, 0] = consts[0].to(latents.dtype)
+            out, what = latents.float().cpu().numpy(), "latents"
+        else:
+            video = decode_fn(consts, latents)
+            self.last_timings["decode_ms"] = (self._sync() - t1) * 1e3
+            out, what = video.cpu().numpy(), "video"
+        if not np.isfinite(out).all():
             raise FloatingPointError(
-                "generated video contains non-finite values; with the static-offset "
+                f"generated {what} contain non-finite values; with the static-offset "
                 "flash softmax retry with VideoUNetConfig.flash_static_max=0.0"
             )
-        if output_type == "float":
-            return video
-        return image_utils.postprocess_video(video)
+        if output_type == "np":
+            return image_utils.postprocess_video(out)
+        return out

@@ -4,10 +4,14 @@ of one training step.
     python -m i2v_adapter_tpu_torch.tools.profile_step           # serving
     python -m i2v_adapter_tpu_torch.tools.profile_step --train   # training
     python -m i2v_adapter_tpu_torch.tools.profile_step --conv-impl pallas [--train]
+    python -m i2v_adapter_tpu_torch.tools.profile_step --int8     # the serving default
 
 ``--conv-impl`` sets ``VideoUNetConfig.conv_impl`` of the profiled model
 (``pallas``: every resnet stage through the fused GroupNorm-apply + SiLU +
-3x3 conv kernel K4).
+3x3 conv kernel K4).  ``--int8`` serves with ``PipelineConfig.int8_conv``
+on, the serving default: the UNet's and the VAE decoder's convs in int8
+(the int8 3x3 conv kernel, K7 for the stride-2 downsamplers); without it
+the convs are exact.
 
 Serving builds the full-width (SD1.5) pipeline with seeded random weights
 on the GPU, serves one warm-up request, then profiles the three parts of a
@@ -46,6 +50,12 @@ def _category(name: str) -> str:
         return "temporal_attention_cs (K2)"
     if "bwd_dq" in n or "bwd_dkv" in n or "bwd_prep" in n:
         return "flash_attention_bwd (K3)"
+    if "int8_conv3x3" in n:
+        return "int8 3x3 conv"
+    if "quantize_weights" in n:
+        return "int8 weight quantiser"
+    if "int8_mm" in n:
+        return "int8_matmul (K7)"
     if "conv3x3_wgmma" in n or "conv3x3_f32" in n or "pack_weights" in n:
         return "conv3x3_kernel (K4)"
     if "conv" in n or "implicit" in n or "winograd" in n or "fprop" in n:
@@ -125,6 +135,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true", help="profile one training step")
     ap.add_argument("--conv-impl", default="auto", choices=["auto", "xla", "pallas"],
                     help="VideoUNetConfig.conv_impl of the profiled model")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve with int8 convs (PipelineConfig.int8_conv, the serving default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -133,21 +145,21 @@ def main(argv=None) -> int:
     if args.train:
         profile_train(dev, args.conv_impl)
     else:
-        profile_serving(dev, args.conv_impl)
+        profile_serving(dev, args.conv_impl, args.int8)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
     return 0
 
 
-def profile_serving(dev, conv_impl: str) -> None:
+def profile_serving(dev, conv_impl: str, int8: bool = False) -> None:
     from i2v_adapter_tpu_torch.config import PipelineConfig
     from i2v_adapter_tpu_torch.utils import image as image_utils
     from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 
     pcfg = PipelineConfig(num_frames=FRAMES, height=SIZE, width=SIZE,
                           num_inference_steps=STEPS, guidance_scale=7.5, blur_sigma=1.0,
-                          dtype="bfloat16", int8_conv=False)
+                          dtype="bfloat16", int8_conv=int8)
     model_cfg = _model_config(conv_impl)
     pipe = random_pipeline(model_cfg, pcfg, dev)
     image = np.random.default_rng(6).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
@@ -174,7 +186,7 @@ def profile_serving(dev, conv_impl: str) -> None:
 
         for label, fn in (("prep", run_prep), ("denoise_step", run_step), ("decode", run_decode)):
             line = profile(fn, label)
-            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl)
+            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl, int8=int8)
             print(json.dumps(line), flush=True)
 
 

@@ -90,9 +90,17 @@ def merge_trees(frozen: Mapping[str, Any], trainable: Mapping[str, Any]) -> dict
 
 def load_train_state(state, jax_state) -> Any:
     """Fill a port ``TrainState``'s models from a JAX ``TrainState``: its
-    trainable + frozen UNet trees and its VAE / text / image trees (each
-    present on both sides).  Strict, like ``load_flax_params``; each
-    parameter keeps its own dtype."""
+    trainable + frozen UNet trees, its EMA of the trainables (present on
+    both sides or neither) and its VAE / text / image trees (each present
+    on both sides).  Strict, like ``load_flax_params``; each parameter
+    keeps its own dtype."""
+    if (state.ema is None) != (getattr(jax_state, "ema", None) is None):
+        raise ValueError("ema: present on one side only")
+    if state.ema is not None:  # the EMA tree goes through the UNet's own names
+        load_flax_params(state.unet, merge_trees(jax_state.frozen, jax_state.ema))
+        named = dict(state.unet.named_parameters())
+        for n, e in state.ema.items():
+            e.copy_(named[n].detach())
     load_flax_params(state.unet, merge_trees(jax_state.frozen, jax_state.trainable))
     for name in ("vae", "text_encoder", "image_encoder"):
         tree, module = getattr(jax_state, name), getattr(state, name)

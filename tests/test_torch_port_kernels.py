@@ -402,3 +402,109 @@ def test_int8_pallas_close_to_bf16_product_on_card(cuda_device):
     want = x.float() @ wf
     assert got.dtype == torch.float32 and _relerr(got, want) < 5e-2
     assert torch.equal(I8.int8_pallas(x, wq, ws), I8.int8_library(x, wq, ws))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1000, 48, 36), (4096, 2880, 320), (129, 1280, 132), (2048, 11520, 1280)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_dequant_on_card(cuda_device, m, k, n, out_dtype):
+    """K7 on K-major weights (as the int8 downsamplers store them), int32
+    and dequantised: equal to the plain versions (the epilogue repeats the
+    plain dequantisation's fp32 operations in order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + 3 * k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=cuda_device, dtype=torch.int8).t()
+    xs = torch.rand((), generator=g, device=cuda_device) * 1e-2
+    ws = torch.rand(n, generator=g, device=cuda_device) * 1e-2
+    bias = torch.randn(n, generator=g, device=cuda_device)
+    want = I8.int8_matmul_plain(xq, wq)
+    assert torch.equal(I8.int8_matmul(xq, wq), want)
+    for b in (bias, None):
+        got = I8.int8_matmul(xq, wq, scale=xs, col_scale=ws, bias=b, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        assert torch.equal(got, I8.dequantize(want, xs, ws, b, out_dtype))
+
+
+# ---------------------------------------------------------------------------
+# the int8 3x3 conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,co,dtype", [
+    (2, 8, 8, 32, 16, torch.bfloat16),
+    (2, 12, 8, 144, 264, torch.bfloat16),     # channel tail, Cout tail (n128)
+    (2, 16, 16, 320, 320, torch.bfloat16),    # n160
+    (1, 6, 300, 64, 136, torch.bfloat16),     # strips of a wide image
+    (2, 64, 64, 320, 640, torch.bfloat16),    # n256, several images per CTA row
+    (3, 5, 7, 48, 24, torch.float32),
+])
+def test_int8_conv_kernel_exact_on_card(cuda_device, b, h, w, c, co, dtype):
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+
+    g = torch.Generator(device=cuda_device).manual_seed(b * h * w + c + co)
+    x = (torch.randn(b, h, w, c, generator=g, device=cuda_device) * 3).to(dtype)
+    kernel = torch.randn(3, 3, c, co, generator=g, device=cuda_device) / (9 * c) ** 0.5
+    bias = torch.randn(co, generator=g, device=cuda_device)
+    wq, ws = Q.quantize_weight(kernel)
+    xs = Q.activation_scale(x)
+    want = Q.int8_conv_int32_plain(Q.quantize_activation(x, xs), wq)
+    before = Q.int8_conv3x3_kernel.launches
+    got = Q.int8_conv3x3_kernel(x, wq, xs, ws, bias, out_dtype=torch.int32)
+    assert Q.int8_conv3x3_kernel.launches == before + 1
+    assert torch.equal(got, want)
+    got = Q.int8_conv3x3_kernel(x, wq, xs, ws, bias)
+    assert got.dtype == dtype and torch.equal(got, Q.dequantize(want, xs, ws, bias, dtype))
+    # the whole op, with its quantisers, against the plain version
+    assert torch.equal(Q.int8_conv(x, kernel, bias), Q.int8_conv_plain(x, kernel, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("padding", [1, 0])
+def test_int8_strided_conv_through_k7_on_card(cuda_device, padding):
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+
+    g = torch.Generator(device=cuda_device).manual_seed(padding)
+    x = torch.randn(4, 17, 16, 64, generator=g, device=cuda_device).to(torch.bfloat16)
+    kernel = torch.randn(3, 3, 64, 96, generator=g, device=cuda_device) / 24
+    bias = torch.randn(96, generator=g, device=cuda_device)
+    before = (I8.int8_matmul.launches, Q.int8_conv3x3_kernel.launches)
+    got = Q.int8_conv(x, kernel, bias, stride=2, padding=padding)
+    assert (I8.int8_matmul.launches, Q.int8_conv3x3_kernel.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, Q.int8_conv_plain(x, kernel, bias, stride=2, padding=padding))
+
+
+@pytest.mark.gpu
+def test_int8_conv_kernel_refuses_unaligned_channels(cuda_device):
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+
+    x = torch.zeros(1, 4, 4, 24, device=cuda_device, dtype=torch.bfloat16)
+    wq = torch.zeros(16, 3, 3, 24, device=cuda_device, dtype=torch.int8)
+    one = torch.ones((), device=cuda_device)
+    before = Q.int8_conv3x3_kernel.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.int8_conv3x3_kernel(x, wq, one, torch.ones(16, device=cuda_device), None)
+    assert Q.int8_conv3x3_kernel.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,co,dtype,view", [(320, 320, torch.bfloat16, True), (2560, 1280, torch.bfloat16, True),
+                                             (144, 264, torch.float32, True), (48, 24, torch.float32, False)])
+def test_quantize_weight_kernel_equals_plain_on_card(cuda_device, c, co, dtype, view):
+    """The weight quantiser on an OIHW parameter's HWIO view (as the models
+    pass it) or on an HWIO-contiguous array: int8 weights and scales equal
+    to the plain version's."""
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+
+    g = torch.Generator(device=cuda_device).manual_seed(c + co)
+    if view:
+        kernel = (torch.randn(co, c, 3, 3, generator=g, device=cuda_device) / (9 * c) ** 0.5).to(dtype)
+        kernel = kernel.permute(2, 3, 1, 0)
+    else:
+        kernel = (torch.randn(3, 3, c, co, generator=g, device=cuda_device) / (9 * c) ** 0.5).to(dtype)
+    before = Q.quantize_weight.launches
+    wq, ws = Q.quantize_weight(kernel)
+    assert Q.quantize_weight.launches == before + 1
+    pq, ps = Q.quantize_weight_plain(kernel)
+    assert wq.dtype == torch.int8 and wq.shape == (co, 3, 3, c) and ws.dtype == torch.float32
+    assert torch.equal(wq, pq) and torch.equal(ws, ps)

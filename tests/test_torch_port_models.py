@@ -133,13 +133,18 @@ def test_video_unet_full_eval(unet_params, fast_gelu):
 
 
 def test_video_unet_refuses_unported_options():
-    for kw in (dict(int8_conv=True), dict(ip_variant="plus"), dict(freeu=(0.9, 0.2, 1.2, 1.4))):
+    for kw in (dict(ip_variant="plus"), dict(freeu=(0.9, 0.2, 1.2, 1.4))):
         with pytest.raises(NotImplementedError):
             VideoUNet(tiny_test_config().unet.replace(**kw), device=CPU)
-    # the fused-conv configuration is ported: it builds, with the same parameters
+    # the fused-conv and int8 configurations are ported: they build, with the
+    # same parameters
+    plain = list(VideoUNet(tiny_test_config().unet, device=CPU).state_dict())
     fused = VideoUNet(tiny_test_config().unet.replace(conv_impl="pallas"), device=CPU)
-    assert list(fused.state_dict()) == list(VideoUNet(tiny_test_config().unet, device=CPU).state_dict())
+    assert list(fused.state_dict()) == plain
     assert all(m.conv_impl == "pallas" for m in fused.modules() if isinstance(m, ResnetBlock2D))
+    int8 = VideoUNet(tiny_test_config().unet.replace(int8_conv=True), device=CPU)
+    assert list(int8.state_dict()) == plain
+    assert all(m.int8 for m in int8.modules() if isinstance(m, ResnetBlock2D))
 
 
 @pytest.fixture(scope="module")

@@ -95,7 +95,9 @@ def test_kernel_sources_present():
     assert set(_build.SOURCES) == {p.stem for p in (PKG / "csrc").glob("*.cu")}
     for name in _build.SOURCES:
         src = (PKG / "csrc" / f"{name}.cu").read_text()
-        assert "Replaces: i2v_adapter_tpu/ops/" in src
+        # the int8 conv replaces an XLA conv of the reference, not a Pallas kernel
+        assert ("Replaces: i2v_adapter_tpu/ops/" in src
+                or "Replaces: i2v_adapter_tpu/models/layers.py::int8_conv" in src)
         assert "What bounds it here" in src
 
 
@@ -120,8 +122,35 @@ def test_explicit_cpu_device_works():
 
 
 def test_pipeline_refuses_int8_conv():
-    with pytest.raises(NotImplementedError, match="int8"):
-        I2VAdapterPipeline(pconfig.tiny_test_config(), {}, None, pconfig.PipelineConfig(), device="cpu")
+    """int8_conv, the serving default, was refused until it was ported: the
+    default PipelineConfig() now builds, with the UNet's and the VAE
+    decoder's convs switched to int8 (the encoder's stay exact), and
+    ``enable_int8_conv(False)`` switches them back on the same weights."""
+    from i2v_adapter_tpu_torch.models.layers import Downsample2D, ResnetBlock2D, Upsample2D
+
+    mc = pconfig.tiny_test_config()
+    modules = {"unet": VideoUNet(mc.unet, device="cpu"), "vae": AutoencoderKL(mc.vae, device="cpu"),
+               "text_encoder": CLIPTextEncoder(mc.text_encoder, device="cpu"),
+               "image_encoder": CLIPVisionEncoder(mc.image_encoder, device="cpu")}
+    pipe = I2VAdapterPipeline(mc, modules, None, pconfig.PipelineConfig(), device="cpu")
+    convs = (ResnetBlock2D, Downsample2D, Upsample2D)
+    int8 = lambda m: [c.int8 for c in m.modules() if isinstance(c, convs)]  # noqa: E731
+    assert pipe.config.unet.int8_conv and pipe.config.vae.int8_decode
+    assert all(int8(pipe.unet)) and all(int8(pipe.vae.decoder)) and not any(int8(pipe.vae.encoder))
+    pipe.enable_int8_conv(False)
+    assert not any(int8(pipe.unet)) and not any(int8(pipe.vae))
+    assert not pipe.config.unet.int8_conv and not pipe.unet.config.int8_conv
+
+
+@pytest.mark.parametrize("kwargs", [dict(encoder_cache=2), dict(cfg_cutoff=0.5)],
+                         ids=["encoder_cache", "cfg_cutoff"])
+def test_pipeline_refuses_unported_serving_options(kwargs):
+    """The reference applies both (its __call__); until they are ported the
+    pipeline refuses them rather than sample exact full-CFG content."""
+    name = next(iter(kwargs))
+    with pytest.raises(NotImplementedError, match=name):
+        I2VAdapterPipeline(pconfig.tiny_test_config(), {}, None, pconfig.PipelineConfig(**kwargs),
+                           device="cpu")
 
 
 def test_wrappers_take_plain_path_on_cpu():

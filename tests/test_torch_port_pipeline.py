@@ -1,11 +1,15 @@
 """The slice as a whole: the port's I2VAdapterPipeline vs the JAX package's
-``_build_parts`` at the tiny config, fp32, on the CPU.
+``_build_parts`` at the tiny config, fp32, exact convs, on the CPU.
 
 * the denoise loop (first-frame clamp, CFG-doubled UNet, guidance, DDIM)
   plus the final clamp and VAE decode, fed identical consts and initial
-  latents: decoded video max error <= 1e-3 and PSNR > 35 dB;
+  latents: decoded video max error <= 1e-3 and PSNR > 35 dB; with a
+  condition image and CFG, without a condition image, without CFG
+  (guidance 1.0), and with ``eta = 0.5`` (the port fed the JAX draws);
 * ``prep`` against the JAX encoders, VAE posterior, blur and prior, with
   the posterior noise, mask draw and prior noise fed from numpy;
+* ``__call__`` against the JAX ``__call__`` for ``output_type='latent'``
+  (1e-4) and ``'pt'`` (as the loop), the port fed the JAX draws;
 * ``__call__`` end to end: shape, dtype, determinism for a fixed seed.
 """
 
@@ -25,6 +29,7 @@ from i2v_adapter_tpu.ops.blur import gaussian_blur as j_blur
 from i2v_adapter_tpu.pipelines.i2v_pipeline import I2VAdapterPipeline as JPipeline
 from i2v_adapter_tpu.schedulers import add_noise as j_add_noise
 from i2v_adapter_tpu.schedulers import make_schedule as j_make_schedule
+from i2v_adapter_tpu.utils.tokenizer import make_test_tokenizer as j_make_test_tokenizer
 from i2v_adapter_tpu_torch.config import PipelineConfig, tiny_test_config
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.utils.tokenizer import make_test_tokenizer
@@ -65,12 +70,12 @@ def setup(tmp_path_factory):
     return {"jcfg": jcfg, "params": params, "pipe": pipe, "size": size, "rng": rng}
 
 
-def _jax_pipe(jcfg, size):
+def _jax_pipe(jcfg, size, eta=0.0):
     pipe = JPipeline.__new__(JPipeline)
     pipe.config = jcfg
     pipe.pipe_config = JPipelineConfig(num_frames=F, height=size, width=size,
                                        num_inference_steps=STEPS, dtype="float32",
-                                       blur_sigma=1.0, int8_conv=False)
+                                       blur_sigma=1.0, int8_conv=False, eta=eta)
     pipe.dtype = jnp.float32
     pipe.unet = JUNet(jcfg.unet)
     pipe.vae = JVAE(jcfg.vae)
@@ -80,35 +85,54 @@ def _jax_pipe(jcfg, size):
     return pipe
 
 
-def test_denoise_and_decode_loop_matches_jax(setup):
+@pytest.mark.parametrize("use_cfg,has_condition,eta", [
+    (True, True, 0.0), (True, False, 0.0), (False, True, 0.0), (True, True, 0.5)],
+    ids=["cfg_condition", "no_condition", "guidance_1", "eta"])
+def test_denoise_and_decode_loop_matches_jax(setup, use_cfg, has_condition, eta):
     jcfg, size, rng = setup["jcfg"], setup["size"], setup["rng"]
     ucfg = jcfg.unet
+    guidance = GUIDANCE if use_cfg else 1.0
+    evals = 2 * B if use_cfg else B
     inputs = {
         "latents0": rng.standard_normal((B, F, LAT, LAT, 4)).astype(np.float32),
         "cond_latents": rng.standard_normal((B, LAT, LAT, 4)).astype(np.float32),
-        "text_states": (rng.standard_normal((2 * B, 16, ucfg.cross_attention_dim)) * 0.5).astype(np.float32),
-        "image_embeds": rng.standard_normal((2 * B, ucfg.image_embed_dim)).astype(np.float32),
+        "text_states": (rng.standard_normal((evals, 16, ucfg.cross_attention_dim)) * 0.5).astype(np.float32),
+        "image_embeds": rng.standard_normal((evals, ucfg.image_embed_dim)).astype(np.float32),
     }
-    jpipe = _jax_pipe(jcfg, size)
+    names = ("cond_latents", "text_states", "image_embeds")
+    jpipe = _jax_pipe(jcfg, size, eta)
     _, j_step, j_decode, ts, prev, _ = jpipe._build_parts(
-        B, F, size, size, STEPS, 1.0, GUIDANCE, True, True, 0, False, 1
+        B, F, size, size, STEPS, 1.0, guidance, use_cfg, has_condition, 0, False, 1
     )
     jparams = {k: setup["params"][k] for k in ("unet", "vae")}
-    consts = tuple(jnp.asarray(inputs[k]) for k in ("cond_latents", "text_states", "image_embeds"))
-    carry = (jnp.asarray(inputs["latents0"]), jax.random.PRNGKey(0))
+    consts = tuple(None if (k == "cond_latents" and not has_condition) else jnp.asarray(inputs[k])
+                   for k in names)
+    key = jax.random.PRNGKey(0)
+    carry = (jnp.asarray(inputs["latents0"]), key)
     j_step = jax.jit(j_step)
+    eta_draws = []
     for t, tp in zip(ts, prev):
+        if eta > 0:  # the draw the JAX step makes from its carried key
+            key, nkey = jax.random.split(key)
+            eta_draws.append(np.asarray(jax.random.normal(nkey, (B, F, LAT, LAT, 4), jnp.float32)))
         carry = j_step(jparams, consts, carry, jnp.asarray(t), jnp.asarray(tp))
     want = np.asarray(jax.jit(j_decode)(jparams, consts, carry[0])).reshape(B, F, size, size, 3)
 
     pipe = setup["pipe"]
-    _, step, decode, pts, pprev = pipe._build_parts(B, F, size, size, STEPS, 1.0, GUIDANCE, True, True)
+    if eta > 0:  # the same modules under a config with eta
+        pipe = I2VAdapterPipeline(pipe.config, {"unet": pipe.unet, "vae": pipe.vae,
+                                                "text_encoder": pipe.text_encoder,
+                                                "image_encoder": pipe.image_encoder},
+                                  pipe.tokenizer, pipe.pipe_config.replace(eta=eta), device="cpu")
+    _, step, decode, pts, pprev = pipe._build_parts(B, F, size, size, STEPS, 1.0, guidance, use_cfg,
+                                                    has_condition)
     np.testing.assert_array_equal(pts, ts)
-    pconsts = tuple(torch.from_numpy(inputs[k]) for k in ("cond_latents", "text_states", "image_embeds"))
+    pconsts = tuple(None if c is None else torch.tensor(np.asarray(c)) for c in consts)
     latents = torch.from_numpy(inputs["latents0"])
     with torch.no_grad():
-        for t, tp in zip(pts, pprev):
-            latents = step(pconsts, latents, t, tp)
+        for i, (t, tp) in enumerate(zip(pts, pprev)):
+            noise = torch.from_numpy(eta_draws[i]) if eta > 0 else None
+            latents = step(pconsts, latents, t, tp, eta_noise=noise)
         got = decode(pconsts, latents).numpy()
     assert got.shape == want.shape
     assert maxerr(got, want) <= 1e-3
@@ -169,3 +193,47 @@ def test_call_without_condition_image(setup):
     video = pipe(["a dog", "a cat"], seed=0, output_type="float")
     assert video.shape == (2, F, size, size, 3) and video.dtype == np.float32
     assert np.isfinite(video).all()
+
+
+def test_output_types_match_jax_call(setup, tmp_path, monkeypatch):
+    """``__call__`` with ``output_type='latent'`` (the clamped final latents,
+    no decode) against the JAX ``__call__`` with the same seed, and
+    ``'pt'`` (float video) against the JAX decode of the JAX latents; the
+    port's prep is fed the draws JAX makes from the seed."""
+    jcfg, size, params = setup["jcfg"], setup["size"], setup["params"]
+    jpipe = JPipeline(jcfg, params, j_make_test_tokenizer(str(tmp_path)),
+                      _jax_pipe(jcfg, size).pipe_config)
+    image = np.random.default_rng(6).integers(0, 256, (size, size, 3), dtype=np.uint8)
+    seed = 3
+    want_latents = jpipe("a cat", condition_image=image, seed=seed, output_type="latent")
+    # 'pt' is the decode of those latents (JAX __call__ runs its scan sampler
+    # there, a second whole-loop compile): the JAX decode part, whose
+    # first-frame clamp is a no-op on latents already clamped
+    decode = jpipe._build_parts(B, F, size, size, STEPS, 0.9, GUIDANCE, True, True, 0, False, 1)[2]
+    jl = jnp.asarray(want_latents)
+    want_video = np.asarray(jax.jit(decode)({"vae": params["vae"]}, (jl[:, 0], None, None), jl))
+    want_video = want_video.reshape(B, F, size, size, 3)
+
+    _, k_prior, k_mask, k_vae, _, _ = jax.random.split(jax.random.PRNGKey(seed), 6)
+    shape = (B, F, LAT, LAT, 4)
+    draws = {"posterior_noise": jax.random.normal(k_vae, (B, LAT, LAT, 4), jnp.float32),
+             "mask_uniform": jax.random.uniform(k_mask, shape),
+             "prior_noise": jax.random.normal(k_prior, shape, jnp.float32)}
+    draws = {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()}
+    pipe = setup["pipe"]
+    build = pipe._build_parts
+
+    def fed(*args):
+        prep, *rest = build(*args)
+        return (lambda *a, **k: prep(*a, **k, **draws), *rest)
+
+    monkeypatch.setattr(pipe, "_build_parts", fed)
+    got_latents = pipe("a cat", condition_image=image, seed=seed, output_type="latent")
+    assert "decode_ms" not in pipe.last_timings
+    got_video = pipe("a cat", condition_image=image, seed=seed, output_type="pt")
+    assert got_latents.shape == want_latents.shape == shape and got_latents.dtype == np.float32
+    assert maxerr(got_latents, want_latents) < 1e-4
+    assert got_video.shape == want_video.shape and got_video.dtype == np.float32
+    assert maxerr(got_video, want_video) <= 1e-3 and psnr(got_video, want_video) > 35.0
+    with pytest.raises(ValueError, match="output_type"):
+        pipe("a cat", condition_image=image, output_type="gif")

@@ -214,20 +214,27 @@ def _draws(rng, b, f, lat, tc):
     }
 
 
-def test_train_step_matches_jax(jax_params):
+@pytest.mark.parametrize("options", [dict(), dict(first_frame_mode="exact"), dict(snr_gamma=5.0),
+                                     dict(use_ema=True, ema_decay=0.9)],
+                         ids=["i2v", "first_frame_exact", "snr_gamma", "ema"])
+def test_train_step_matches_jax(jax_params, options):
     """(a) One step at the tiny config: mixed_precision none, i2v, epsilon,
     offset noise and input perturbation on, condition dropout chosen so the
-    batch holds a text drop and an image drop.  Adam with eps = 1 and no
-    decay makes the first update lr * g / (|g| + 1), smooth in g; lr = 1
-    keeps the updates far above the fp32 spacing of the O(1) weights they
-    are added to (at lr = 1e-4 that spacing is a few percent of them)."""
+    batch holds a text drop and an image drop; then the same with
+    ``first_frame_mode='exact'`` (clean first frame, timesteps from 1), with
+    the SNR-gamma loss weighting, and with an EMA of the trainables (its
+    tree after the step to 1e-6 of its max, as the update).  Adam with
+    eps = 1 and no decay makes the first update lr * g / (|g| + 1), smooth
+    in g; lr = 1 keeps the updates far above the fp32 spacing of the O(1)
+    weights they are added to (at lr = 1e-4 that spacing is a few percent
+    of them)."""
     mc, unet_params, vae_params, text_params, image_params = jax_params
     jtc = jconfig.TrainConfig(
         train_batch_size=B, num_frames=F, resolution=RES, gradient_accumulation_steps=1,
         mixed_precision="none", uncond_prob_t=0.3, uncond_prob_i=0.3, noise_offset=0.1,
         input_perturbation=0.05,
         optimizer=jconfig.OptimizerConfig(learning_rate=1.0, adam_epsilon=1.0,
-                                          adam_weight_decay=0.0))
+                                          adam_weight_decay=0.0), **options)
     lat = RES // mc.vae.spatial_scale_factor
     for seed in range(64):  # a key whose dropout uniforms give both drops
         draws = _draws(jax.random.PRNGKey(seed), B, F, lat, jtc)
@@ -265,6 +272,16 @@ def test_train_step_matches_jax(jax_params):
         want = np.asarray(new[name]) - np.asarray(old[name])
         err = float(np.max(np.abs(d - want)))
         assert err <= 1e-3 * float(np.max(np.abs(want))), f"{name}: {err}"
+    assert (pst.ema is None) == (jnew.ema is None) == (not jtc.use_ema)
+    if jtc.use_ema:
+        ema = _flat(to_flax_tree(unet, pst.ema))
+        jema = _flat(jnew.ema)
+        assert set(ema) == set(jema)
+        for name, value in ema.items():
+            want = np.asarray(jema[name])
+            err = float(np.max(np.abs(value - want)))
+            assert err <= 1e-6 * float(np.max(np.abs(want))) + 1e-3 * (1 - jtc.ema_decay) * float(
+                np.max(np.abs(np.asarray(new[name]) - np.asarray(old[name])))), f"ema {name}: {err}"
 
 
 def test_train_launch_derivation_matches_the_model(monkeypatch):
