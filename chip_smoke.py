@@ -38,7 +38,26 @@ Phases, one JSON line each, in order:
                    the serving default ``PipelineConfig()`` (int8 convs) on
                    the same weights, once for its latents and once decoded;
                    launch counts checked against the config
-7. ``train``    -- the adapter training step at the reference workload
+7. ``pretrained`` -- a full-width diffusers-layout checkpoint directory
+                   (``I2VModelConfig()``, fp16, seeded random weights, the
+                   77-token tokenizer) and an adapter task
+                   ``checkpoint/<task>/epoch_1/i2v_adapter`` with nonzero
+                   weights, written by ``tests/torch_port_synth.py`` and
+                   loaded with ``I2VAdapterPipeline.from_pretrained``: bytes,
+                   write and load seconds, the host's peak RSS, the card's
+                   peak memory; the adapter merged, the IP head standard
+8. ``serve``    -- the daemon, ``pipelines.serve.main``, on that directory and
+                   task at the serving default over four queued requests:
+                   (a) the CLI's defaults (512x512, 16 frames, 25 steps cut
+                   to 22, CFG 7.5), (b) 5 steps, another seed, ``npy``, (c) a
+                   missing image, (d) ``encoder_cache: 2``; (a) and (b) give
+                   16-frame 512 px clips, (c) and (d) fail with the worker
+                   serving on, and each request's launches equal the
+                   config's; (a)'s ``latency_s`` and phase times are the
+                   clip latency
+9. ``cli``      -- ``pipelines.cli.main`` on a one-row CSV with the same task,
+                   ``--no-int8_conv``, 5 steps: one GIF
+10. ``train``   -- the adapter training step at the reference workload
                    (``reference_train_config``: SD1.5 widths, 2 clips x 16
                    frames at 256 px, bf16 with
                    fp32 trainables, frozen weights in bf16, activation
@@ -46,16 +65,18 @@ Phases, one JSON line each, in order:
                    synthetic batch: 1 warm-up + 4 timed steps; loss finite,
                    no step skipped, every trainable moved, no frozen weight
                    moved, K1/K2/K3 launches as derived from the config
-8. ``gradcheck`` -- trainable gradients with the kernels vs with plain
+11. ``gradcheck`` -- trainable gradients with the kernels vs with plain
                    attention over three seeds' draws (relative L2 error and
                    cosine over all trainables, worst leaf's relative L2),
                    and planted K3 faults that the limits must catch
-9. ``train_pallas`` -- the same training workload with ``conv_impl='pallas'``:
+12. ``train_pallas`` -- the same training workload with ``conv_impl='pallas'``:
                    1 warm-up + 2 timed steps, first-step loss within 2 % of
                    the ``'auto'`` run's on the same draws, K4 launched twice
                    per resnet conv per step (forward + recompute)
-10. ``int8_tool`` -- ``ops.profile_int8_dense`` at a cut list of its shapes
+13. ``int8_tool`` -- ``ops.profile_int8_dense`` at a cut list of its shapes
 
+The ``pretrained`` directory is written under ``chip_smoke_work/`` beside
+this script (git-ignored) and removed at the end.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then the per-kernel summary ``{"kernels": [...]}``, the nvidia-smi
 line and the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -69,7 +90,10 @@ import contextlib
 import functools
 import json
 import math
+import os
 import re
+import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -1175,6 +1199,254 @@ def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, 
     return line, runs["np"]["launches"]
 
 
+# the checkpoint directory, the adapter task and the queue live here
+# (git-ignored), removed at the end of the run
+WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_work")
+TASK = "smoke_task"
+
+
+def host_memory_gb() -> dict:
+    """The process's peak resident set so far and its current one, GB."""
+    with open("/proc/self/statm") as f:
+        resident = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return {"peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            "rss_gb": resident / 1e9}
+
+
+def port_synth():
+    """``tests/torch_port_synth.py`` (the checkpoint writer), loaded by path:
+    an installed package named ``tests`` may shadow the repository's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_synth.py")
+    spec = importlib.util.spec_from_file_location("torch_port_synth", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def serving_sizes(rehearse: bool):
+    """(size, frames, command-line size flags) of the entry-point phases."""
+    if rehearse:
+        return 32, 2, ["--height", "32", "--width", "32", "--num_frames", "2", "--device", "cpu"]
+    return 512, 16, []
+
+
+def phase_pretrained(model_cfg, dev, rehearse: bool) -> dict:
+    """Write the full-width checkpoint directory (fp16) and the adapter task,
+    load them with ``from_pretrained`` at the serving default, and check
+    that the adapter file's weights are the UNet's (nonzero, each in the
+    compute dtype) and the IP head is the standard one."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+    from i2v_adapter_tpu_torch.utils.convert import extract_i2v_adapter, load_state_dict, to_flax_tree
+
+    synth = port_synth()
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    root, ckpt = os.path.join(WORK_DIR, "sd15"), os.path.join(WORK_DIR, "checkpoint")
+    mem_before = host_memory_gb()
+    written = synth.write_pretrained_dir(root, model_cfg, seed=11, dtype=np.float16, device=dev)
+    adapter = synth.write_adapter_task(ckpt, TASK, model_cfg, epoch=1, seed=12, dtype=np.float16, device=dev)
+    mem_written = host_memory_gb()
+    if not rehearse:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = I2VAdapterPipeline.from_pretrained(root, model_config=model_cfg, pipeline_config=PipelineConfig(),
+                                              i2v_adapter_path=adapter, device=dev)
+    if not rehearse:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mem_loaded = host_memory_gb()
+    adapter_params = {n: p.detach() for n, p in pipe.unet.named_parameters() if ".i2v_adapter." in n}
+    got = extract_i2v_adapter(to_flax_tree(pipe.unet, adapter_params))
+    want = load_state_dict(adapter)
+    mismatched = sorted(k for k in want if got.get(k) is None or not np.array_equal(
+        got[k], torch.from_numpy(want[k]).to(pipe.dtype).float().numpy()))
+    params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+              for name in ("unet", "vae", "text_encoder", "image_encoder")}
+    line = {
+        "phase": "pretrained", "config": "I2VModelConfig()" if not rehearse else "tiny_test_config()",
+        "dtype_on_disk": "float16", "bytes": written["bytes"], "write_s": written["seconds"],
+        "load_s": load_s, "parameters": params, "parameters_total": sum(params.values()),
+        "host_memory_before_gb": mem_before, "host_memory_after_write_gb": mem_written,
+        "host_memory_after_load_gb": mem_loaded,
+        "gpu_peak_memory_gb": None if rehearse else torch.cuda.max_memory_allocated() / 1e9,
+        "pipeline_dtype": str(pipe.dtype), "int8_conv": pipe.config.unet.int8_conv,
+        "ip_variant": pipe.config.unet.ip_variant, "tokenizer_context": pipe.tokenizer.context_length,
+        "adapter_leaves": len(want), "adapter_leaves_mismatched": mismatched,
+        "adapter_abs_sum": float(sum(p.float().abs().sum() for p in adapter_params.values())),
+    }
+    emit(line)
+    del pipe, adapter_params, got, want
+    if mismatched or not line["adapter_abs_sum"] > 0 or line["ip_variant"] != "standard" \
+            or line["tokenizer_context"] != model_cfg.text_encoder.max_position_embeddings:
+        raise AssertionError(f"pretrained: adapter mismatched {mismatched[:4]}, ip {line['ip_variant']}, "
+                             f"tokenizer {line['tokenizer_context']}")
+    return {"root": root, "checkpoint_dir": ckpt}
+
+
+def _condition_image(size: int) -> str:
+    from PIL import Image
+
+    path = os.path.join(WORK_DIR, "cond.png")
+    Image.fromarray(np.random.default_rng(6).integers(0, 256, (size, size, 3), dtype=np.uint8)).save(path)
+    return path
+
+
+def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """The daemon in-process over four queued requests; each request's
+    launches are read around ``process_request`` and held to the config's
+    derivation for its denoise steps plus one decode."""
+    from PIL import Image
+
+    from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
+    from i2v_adapter_tpu_torch.utils.image import export_to_gif
+
+    size, frames, flags = serving_sizes(rehearse)
+    image = _condition_image(size)
+    req_dir, out_dir = os.path.join(WORK_DIR, "requests"), os.path.join(WORK_DIR, "output")
+    requests = {
+        "a_defaults": {"prompt": "a cat", "image": image, "seed": 0},
+        "b_five_steps": {"prompt": "a dog", "image": image, "seed": 1, "num_inference_steps": 5, "format": "npy"},
+        "c_missing_image": {"prompt": "a cat", "image": os.path.join(WORK_DIR, "missing.png")},
+        "d_encoder_cache": {"prompt": "a cat", "image": image, "encoder_cache": 2},
+    }
+    os.makedirs(req_dir)
+    for i, (rid, req) in enumerate(requests.items()):
+        path = os.path.join(req_dir, rid + ".json")
+        with open(path, "w") as f:
+            json.dump(req, f)
+        os.utime(path, (time.time() + i, time.time() + i))  # the queue's order
+    per_request = {}
+    real = serve_mod.process_request
+
+    def counted(pipe, req, out_prefix):
+        before, pipe.last_timings = launch_counts(), {}
+        try:
+            return real(pipe, req, out_prefix)
+        finally:
+            after = launch_counts()
+            per_request[os.path.basename(out_prefix)] = {
+                "launches": {k: after[k] - before[k] for k in after}, "timings": dict(pipe.last_timings)}
+
+    argv = ["--pretrained_model_path", ckpt["root"], "--task_name", TASK, "--checkpoint_dir",
+            ckpt["checkpoint_dir"], "--requests_dir", req_dir, "--output_dir", out_dir,
+            "--max_requests", str(len(requests))] + flags
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    serve_mod.process_request = counted
+    t0 = time.perf_counter()
+    try:
+        served = serve_mod.main(argv, model_config=model_cfg)
+    finally:
+        serve_mod.process_request = real
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    results = {}
+    for rid in requests:
+        with open(os.path.join(out_dir, rid + ".result.json")) as f:
+            results[rid] = json.load(f)
+    latent = size // model_cfg.vae.spatial_scale_factor
+    flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True)
+    int8 = int8_launches(model_cfg, latent)
+    failed = []
+    for rid, rec in per_request.items():
+        steps = len(rec["timings"].get("step_ms", []))
+        want = expected_counts(flash_attention=steps * flash, temporal_attention_cs=steps * temporal,
+                               **{k: steps * v + (int8["per_decode"][k] if steps else 0)
+                                  for k, v in int8["per_eval"].items()})
+        rec["expected_launches"] = expected_counts() if rehearse else want
+        if rec["launches"] != rec["expected_launches"]:
+            failed.append(f"{rid}: launches {rec['launches']} != {rec['expected_launches']}")
+    want_steps = {"a_defaults": clip_denoise_steps(25, 0.9), "b_five_steps": clip_denoise_steps(5, 0.9),
+                  "c_missing_image": 0, "d_encoder_cache": 0}
+    for rid, n in want_steps.items():
+        if len(per_request.get(rid, {}).get("timings", {}).get("step_ms", [])) != n:
+            failed.append(f"{rid}: not {n} denoise steps")
+    want_shape = [1, frames, size, size, 3]
+    for rid in ("a_defaults", "b_five_steps"):
+        if not results[rid]["ok"] or results[rid]["shape"] != want_shape:
+            failed.append(f"{rid}: {results[rid]}")
+    for rid, error in (("c_missing_image", "FileNotFoundError"), ("d_encoder_cache", "NotImplementedError")):
+        if results[rid]["ok"] or not results[rid]["error"].startswith(error):
+            failed.append(f"{rid}: {results[rid]}")
+    clip = np.load(os.path.join(out_dir, "b_five_steps.npy"))
+    t0 = time.perf_counter()  # the host's GIF export of one clip, as in request (a)
+    export_to_gif(clip[0], os.path.join(out_dir, "b_five_steps_0.gif"))
+    gif_export_s = time.perf_counter() - t0
+    if clip.dtype != np.uint8 or list(clip.shape) != want_shape or int(clip.max()) == int(clip.min()):
+        failed.append(f"b_five_steps.npy: {clip.dtype} {clip.shape}, range {clip.min()}-{clip.max()}")
+    gif = results["a_defaults"].get("outputs", [None])[0]
+    gif_frames = None
+    if gif and os.path.exists(gif):
+        with Image.open(gif) as im:
+            gif_frames = [im.n_frames, *im.size]
+    if gif_frames != [frames, size, size]:
+        failed.append(f"a_defaults gif {gif}: frames, width, height {gif_frames}")
+    renamed = sorted(os.listdir(req_dir))
+    if served != len(requests) or renamed != ["a_defaults.json.done", "b_five_steps.json.done",
+                                              "c_missing_image.json.failed", "d_encoder_cache.json.failed"]:
+        failed.append(f"served {served}, request files {renamed}")
+    if counts != {k: sum(r["launches"][k] for r in per_request.values()) for k in counts}:
+        failed.append(f"launches outside the requests: {counts}")
+    a = per_request.get("a_defaults", {}).get("timings", {})
+    step_ms = a.get("step_ms") or [float("nan")]
+    emit({
+        "phase": "serve", "argv": argv, "served": served, "seconds": total_s,
+        "peak_memory_gb": None if rehearse else torch.cuda.max_memory_allocated() / 1e9,
+        "results": results, "request_files": renamed,
+        "clip_latency_s": results["a_defaults"].get("latency_s"),
+        "clip_timings_ms": {"prep": a.get("prep_ms"), "step_mean": float(np.mean(step_ms)),
+                            "step_min": float(np.min(step_ms)), "step_max": float(np.max(step_ms)),
+                            "steps": len(step_ms), "decode": a.get("decode_ms")},
+        "gif_export_s": gif_export_s,
+        "per_request": per_request, "gif_frames_width_height": gif_frames,
+        "launches_per_unet_eval": {"flash_attention": flash, "temporal_attention_cs": temporal,
+                                   **int8["per_eval"]},
+        "launches_per_decode": int8["per_decode"], "launches": counts, "failed": failed,
+    })
+    if failed:
+        raise AssertionError(f"serve: {failed}")
+    return counts
+
+
+def phase_cli(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """The CLI on a one-row CSV with the adapter task, exact convs, 5 steps:
+    one GIF; K1 and K2 launched as derived for its denoise steps."""
+    from PIL import Image
+
+    from i2v_adapter_tpu_torch.pipelines import cli
+
+    size, frames, flags = serving_sizes(rehearse)
+    eval_csv, out_dir = os.path.join(WORK_DIR, "eval.csv"), os.path.join(WORK_DIR, "samples")
+    with open(eval_csv, "w") as f:
+        f.write(f"prompt,image_path\na cat,{_condition_image(size)}\n")
+    argv = ["--task_name", TASK, "--checkpoint_dir", ckpt["checkpoint_dir"], "--pretrained_model_path",
+            ckpt["root"], "--eval_csv_path", eval_csv, "--output_dir", out_dir, "--no-int8_conv",
+            "--num_inference_steps", "5"] + flags
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    written = cli.main(argv, model_config=model_cfg)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    latent = size // model_cfg.vae.spatial_scale_factor
+    flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True)
+    steps = clip_denoise_steps(5, 0.9)
+    expected = expected_counts() if rehearse else expected_counts(
+        flash_attention=steps * flash, temporal_attention_cs=steps * temporal)
+    gif_frames = None
+    if len(written) == 1 and os.path.exists(written[0]):
+        with Image.open(written[0]) as im:
+            gif_frames = [im.n_frames, *im.size]
+    emit({"phase": "cli", "argv": argv, "seconds": seconds, "outputs": written,
+          "gif_frames_width_height": gif_frames, "launches": counts, "expected_launches": expected})
+    if gif_frames != [frames, size, size] or counts != expected:
+        raise AssertionError(f"cli: outputs {written} {gif_frames}, launches {counts} != {expected}")
+    return counts
+
+
 def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase: str = "train",
                 first_loss=None):
     """The reference training workload at full width (tiny in rehearsal):
@@ -1369,11 +1641,11 @@ def phase_gradcheck(state, batch, step_fn, rehearse: bool):
 CSRC = "i2v_adapter_tpu_torch/csrc/"
 SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
-     "i2v_adapter_tpu/ops/attention.py:143", ("pipeline", "pipeline_pallas", "train", "train_pallas"),
-     "launches_per_eval"),
+     "i2v_adapter_tpu/ops/attention.py:143",
+     ("pipeline", "pipeline_pallas", "serve", "cli", "train", "train_pallas"), "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
-     ("pipeline", "pipeline_pallas", "train", "train_pallas"), "launches_per_eval"),
+     ("pipeline", "pipeline_pallas", "serve", "cli", "train", "train_pallas"), "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
      ("train", "train_pallas"), "launches_per_step"),
@@ -1386,12 +1658,12 @@ SUMMARY = (
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:871", ("unet_forced_temporal",),
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
-     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "int8_tool"),
+     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "serve", "int8_tool"),
      "launches_per_eval"),
     ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8",), "launches_per_clip"),
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "serve"), "launches_per_clip"),
     ("quantize_weight", "quantize_weight", "quantize_weight", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8",), "launches_per_clip"),
+     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "serve"), "launches_per_clip"),
 )
 
 
@@ -1458,6 +1730,12 @@ def main(argv=None) -> int:
     layout_counts = phase_layouts(dev, rehearse)
     counts, fused_counts, int8_counts = phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse)
     del unet, fused_unet
+    ckpt = phase_pretrained(model_cfg, dev, rehearse)
+    try:
+        serve_counts = phase_serve(model_cfg, dev, rehearse, ckpt)
+        cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
+    finally:
+        shutil.rmtree(WORK_DIR, ignore_errors=True)
     train_state, batch, step_fn, train_counts, first_loss = phase_train(model_cfg, dev, rehearse)
     phase_gradcheck(train_state, batch, step_fn, rehearse)
     del train_state, batch, step_fn
@@ -1468,7 +1746,7 @@ def main(argv=None) -> int:
     if rows is not None:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
-            "train": train_counts,
+            "serve": serve_counts, "cli": cli_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
         idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]

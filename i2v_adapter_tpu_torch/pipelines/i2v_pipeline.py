@@ -11,20 +11,25 @@ Counterpart of the JAX ``I2VAdapterPipeline``:
   5. final clamp and VAE decode of all frames
 
 ``_build_parts`` returns the same three functions as the JAX package's
-(prep, step, decode); ``__call__`` drives them eagerly on the device.
+(prep, step, decode); ``__call__`` drives them eagerly on the device, one
+step at a time (the JAX package's ``dispatch='stepwise'``).
+``from_pretrained`` assembles the pipeline from a diffusers-layout
+checkpoint directory through the key maps of ``utils.convert``.
 
 The serving default, ``PipelineConfig.int8_conv=True``, runs the UNet's
 resnet / down / upsample 3x3 convs and the VAE decoder's convs in int8
 (``ops.int8``); ``enable_int8_conv(False)`` restores exact convs on the
-same weights.  Not ported yet (ROADMAP): ``from_pretrained``, meshes,
+same weights.  Not ported yet (ROADMAP): meshes, ``dispatch='scan'``,
 ``encoder_cache`` and ``cfg_cutoff`` (refused unless off), temporal tiling,
-``unet_chunk``, sliced/tiled decode and GIF export.
+``unet_chunk``, sliced/tiled decode.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import time
-from typing import Mapping, Optional, Sequence, Union
+from typing import List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -40,9 +45,22 @@ from i2v_adapter_tpu_torch.models import (
 )
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
+from i2v_adapter_tpu_torch.utils import convert
 from i2v_adapter_tpu_torch.utils import image as image_utils
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
 from i2v_adapter_tpu_torch.utils.tokenizer import CLIPTokenizer
+
+
+def _refuse_unported(encoder_cache, cfg_cutoff) -> None:
+    """Refuse the serving approximations that are not ported yet: any
+    ``encoder_cache`` but 1 and any ``cfg_cutoff`` but 1.0 (both off)."""
+    unported = []
+    if encoder_cache != 1:
+        unported.append(f"encoder_cache={encoder_cache} (only 1, off)")
+    if cfg_cutoff != 1.0:
+        unported.append(f"cfg_cutoff={cfg_cutoff} (only 1.0, off)")
+    if unported:
+        raise NotImplementedError("not ported yet (ROADMAP: serving extras): " + "; ".join(unported))
 
 
 class I2VAdapterPipeline:
@@ -60,14 +78,7 @@ class I2VAdapterPipeline:
         pipeline_config: PipelineConfig = PipelineConfig(),
         device: DeviceLike = None,
     ):
-        unported = []
-        if pipeline_config.encoder_cache != 1:
-            unported.append(f"encoder_cache={pipeline_config.encoder_cache} (only 1, off)")
-        if pipeline_config.cfg_cutoff != 1.0:
-            unported.append(f"cfg_cutoff={pipeline_config.cfg_cutoff} (only 1.0, off)")
-        if unported:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP: serving extras): " + "; ".join(unported))
+        _refuse_unported(pipeline_config.encoder_cache, pipeline_config.cfg_cutoff)
         if pipeline_config.int8_conv:
             # serving default: int8 UNet / VAE-decoder convs on the same weights
             model_config = model_config.replace(
@@ -90,6 +101,81 @@ class I2VAdapterPipeline:
         )
         self.schedule = make_schedule(model_config.scheduler)
         self.last_timings: dict = {}
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        path: str,
+        model_config: Optional[I2VModelConfig] = None,
+        pipeline_config: PipelineConfig = PipelineConfig(),
+        i2v_adapter_path: Optional[str] = None,
+        motion_adapter_path: Optional[str] = None,
+        ip_adapter_path: Optional[str] = None,
+        device: DeviceLike = None,
+    ) -> "I2VAdapterPipeline":
+        """Assemble from torch-layout checkpoints on disk.  ``path`` uses the
+        diffusers directory layout: ``unet/``, ``vae/``, ``text_encoder/``,
+        ``tokenizer/``, with the IP-Adapter ``image_encoder/``; the motion
+        adapter, the I2V adapter and the IP-Adapter default to the sibling
+        folders ``motion_adapter/``, ``i2v_adapter/`` and ``ip_adapter/``
+        (the first ``.safetensors`` of a folder, else its first ``.bin``).
+        Without an I2V-adapter checkpoint the adapter is the zero-init no-op.
+        The IP-Adapter's head variant is read from its keys; the plus and
+        full_face heads are refused by the UNet (not ported yet).
+
+        Each model is converted, loaded into its module on ``device`` and
+        cast to the pipeline's dtype before the next file is read, so the
+        host holds one model's arrays at a time (every float leaf, fp16
+        included, is stored in the compute dtype)."""
+        model_config = model_config or I2VModelConfig()
+        device = resolve_device(device)
+        dtype = DTYPES[pipeline_config.dtype]
+
+        def find_weights(sub):
+            for pattern in ("*.safetensors", "*.bin"):
+                hits = sorted(glob.glob(os.path.join(path, sub, pattern)))
+                if hits:
+                    return hits[0]
+            return None
+
+        def load(sub, given=None, required=False):
+            found = given or find_weights(sub)
+            if found is None and required:
+                raise FileNotFoundError(f"no weights in {os.path.join(path, sub)} (*.safetensors or *.bin)")
+            return convert.load_state_dict(found) if found else None
+
+        def build(module, tree):
+            return load_flax_params(module, tree).to(device, dtype).eval()
+
+        ip_sd = load("ip_adapter", ip_adapter_path)
+        if ip_sd is not None and model_config.unet.use_ip_adapter:
+            model_config = model_config.replace(
+                unet=model_config.unet.replace(**convert.ip_config_updates(ip_sd)))
+        unet = VideoUNet(model_config.unet, device=device)  # refuses an unported IP head first
+        tree = convert.convert_unet(
+            load("unet", required=True), model_config.unet, load("motion_adapter", motion_adapter_path),
+            load("i2v_adapter", i2v_adapter_path), ip_sd)
+        del ip_sd
+        modules = {"unet": build(unet, tree)}
+        del tree, unet
+        mc = model_config
+        modules["vae"] = build(AutoencoderKL(mc.vae, device=device),
+                               convert.convert_vae(load("vae", required=True), mc.vae))
+        modules["text_encoder"] = build(
+            CLIPTextEncoder(mc.text_encoder, device=device),
+            convert.convert_clip_text(load("text_encoder", required=True), mc.text_encoder))
+        if mc.unet.use_ip_adapter:
+            modules["image_encoder"] = build(
+                CLIPVisionEncoder(mc.image_encoder, device=device),
+                convert.convert_clip_vision(load("image_encoder", required=True), mc.image_encoder))
+        tokenizer = CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer"))
+        return cls(model_config, modules, tokenizer, pipeline_config, device=device)
+
+    def export_gifs(self, video_uint8: np.ndarray, prefix: str, fps: int = 8) -> List[str]:
+        """One GIF per clip of a (B, F, H, W, 3) uint8 video:
+        ``<prefix>_<i>.gif``."""
+        return [image_utils.export_to_gif(clip, f"{prefix}_{i}.gif", fps)
+                for i, clip in enumerate(video_uint8)]
 
     def _module(self, value, cls, cfg) -> nn.Module:
         if not isinstance(value, nn.Module):
@@ -235,16 +321,40 @@ class I2VAdapterPipeline:
         frame_similarity_sample_ratio: Optional[float] = None,
         seed: int = 0,
         output_type: str = "np",
+        dispatch: str = "auto",
+        encoder_cache: Optional[int] = None,
+        cfg_cutoff: Optional[float] = None,
     ):
         """Generate clips: (B, F, H, W, 3) uint8 (``output_type='np'``),
         float32 in [-1, 1] (``'pt'`` or ``'float'``), or the final latents
         without a decode (``'latent'``: (B, F, h, w, 4) float32, the first
         frame clamped to the condition, still times ``scaling_factor``).
         Phase times of the call (ms, synchronised on the GPU) are left in
-        ``self.last_timings``; ``'latent'`` has no ``decode_ms``."""
+        ``self.last_timings``; ``'latent'`` has no ``decode_ms``.
+
+        ``dispatch``: ``'auto'`` and ``'stepwise'`` run the eager loop, one
+        device pass per denoise step (the JAX package's stepwise dispatch);
+        ``'scan'``, the whole clip as one fused dispatch, is not ported yet
+        (CUDA-graph capture) and raises ``NotImplementedError``.
+        ``encoder_cache`` / ``cfg_cutoff`` (None: the pipeline config's):
+        values outside the reference's domain raise ``ValueError``, as
+        there; any value but off (1, 1.0) raises ``NotImplementedError``."""
         if output_type not in ("np", "pt", "float", "latent"):
             raise ValueError(f"output_type must be 'np', 'pt', 'float' or 'latent', got {output_type!r}")
+        if dispatch not in ("auto", "scan", "stepwise"):
+            raise ValueError(f"dispatch must be auto/scan/stepwise, got {dispatch!r}")
+        if dispatch == "scan":
+            raise NotImplementedError(
+                "dispatch='scan' (the whole clip as one fused dispatch) is not ported yet "
+                "(ROADMAP: serving extras, CUDA-graph capture); 'auto' and 'stepwise' run")
         pcfg = self.pipe_config
+        encoder_cache = pcfg.encoder_cache if encoder_cache is None else encoder_cache
+        cfg_cutoff = pcfg.cfg_cutoff if cfg_cutoff is None else cfg_cutoff
+        if encoder_cache not in (1, 2):
+            raise ValueError(f"encoder_cache must be 1 (off) or 2, got {encoder_cache}")
+        if not 0.0 <= cfg_cutoff <= 1.0:
+            raise ValueError(f"cfg_cutoff must be in [0, 1], got {cfg_cutoff}")
+        _refuse_unported(encoder_cache, cfg_cutoff)
         num_frames = num_frames or pcfg.num_frames
         height = height or pcfg.height
         width = width or pcfg.width

@@ -1,11 +1,15 @@
 """Host-side image pre/post-processing (numpy / OpenCV / PIL).
 
-The port's own copy of what the pipeline uses from the JAX package's
-``utils/image.py``: the VaeImageProcessor-style condition-image
-preprocessing, CLIP normalisation, and the uint8 video postprocess.
+The port's own copy of what the pipeline and its entry points use from the
+JAX package's ``utils/image.py``: the VaeImageProcessor-style
+condition-image preprocessing, CLIP normalisation, the uint8 video
+postprocess, reading a condition image from a path, and GIF / MP4 export.
+GIF export needs ``imageio`` or PIL, MP4 export OpenCV.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Union
 
 import numpy as np
 
@@ -66,3 +70,38 @@ def postprocess_video(video: np.ndarray) -> np.ndarray:
     """(B, F, H, W, 3) in [-1, 1] -> uint8."""
     video = np.clip(np.asarray(video, dtype=np.float32) / 2.0 + 0.5, 0.0, 1.0)
     return (video * 255.0).round().astype(np.uint8)
+
+
+def load_image(path: str):
+    """A condition image from a file, as a PIL image (the entry points'
+    ``Image.open``)."""
+    from PIL import Image
+
+    return Image.open(path)
+
+
+def export_to_gif(frames: Union[np.ndarray, Sequence[np.ndarray]], path: str, fps: int = 8) -> str:
+    """Save (F, H, W, 3) uint8 frames as a GIF (imageio, else PIL)."""
+    frames = [np.asarray(f) for f in frames]
+    try:
+        import imageio
+
+        imageio.mimsave(path, frames, duration=1000 / fps, loop=0)
+    except ImportError:
+        from PIL import Image
+
+        imgs = [Image.fromarray(f) for f in frames]
+        imgs[0].save(path, save_all=True, append_images=imgs[1:], duration=int(1000 / fps), loop=0)
+    return path
+
+
+def export_to_mp4(frames: np.ndarray, path: str, fps: int = 8) -> str:
+    """Save (F, H, W, 3) uint8 frames as an MP4 through OpenCV."""
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        writer.write(cv2.cvtColor(np.asarray(f), cv2.COLOR_RGB2BGR))
+    writer.release()
+    return path
