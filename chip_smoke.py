@@ -47,14 +47,25 @@ Phases, one JSON line each, in order:
                    write and load seconds, the host's peak RSS, the card's
                    peak memory; the adapter merged, the IP head standard
 8. ``serve``    -- the daemon, ``pipelines.serve.main``, on that directory and
-                   task at the serving default over four queued requests:
-                   (a) the CLI's defaults (512x512, 16 frames, 25 steps cut
-                   to 22, CFG 7.5), (b) 5 steps, another seed, ``npy``, (c) a
-                   missing image, (d) ``encoder_cache: 2``; (a) and (b) give
-                   16-frame 512 px clips, (c) and (d) fail with the worker
-                   serving on, and each request's launches equal the
-                   config's; (a)'s ``latency_s`` and phase times are the
-                   clip latency
+                   task at the serving default over its queue: (a) the CLI's
+                   defaults (512x512, 16 frames, 25 steps cut to 22, CFG
+                   7.5), (b) 5 steps, another seed, ``npy``, (c) a missing
+                   image, (d) ``encoder_cache: 2`` and (e) ``cfg_cutoff:
+                   0.5`` at 25 steps, (j) a request over the card's memory
+                   envelope, (f) a 48-frame clip (4 anchored temporal
+                   windows, 5 steps); (c) and (j) fail with the worker
+                   serving on, each request's launches equal the config's;
+                   (a)'s ``latency_s`` and phase times are the clip latency;
+                   (d)'s full and cached, (e)'s CFG and cond-only step times
+8b. ``serve_heads`` -- ``from_pretrained`` of the same directory: with the
+                   standard head, the card's memory budgets (peak memory of
+                   one 512 px UNet evaluation at 32 and 64 frame-evaluations,
+                   the encoder cache of one full step, one evaluation at the
+                   pipeline's envelope), ``vae_tiling``'s tiled decode of 16
+                   frames at 768 px against the untiled one, and (g) a FreeU
+                   request (``enable_freeu``); with (h) a plus and (i) a
+                   full_face IP-Adapter file written beside the directory, one
+                   request each, through the daemon's loop (``serve.serve``)
 9. ``cli``      -- ``pipelines.cli.main`` on a one-row CSV with the same task,
                    ``--no-int8_conv``, 5 steps: one GIF
 10. ``train``   -- the adapter training step at the reference workload
@@ -206,27 +217,33 @@ def expected_counts(**counts) -> dict:
 
 
 def launches_per_unet_eval(ucfg, latent: int, cross_frame: bool, flash_min: int = 128,
-                           temporal_min: int = 128):
+                           temporal_min: int = 128, ip_tokens: int = 0, cached: bool = False):
     """(flash, temporal) kernel launches of one VideoUNet evaluation under
     the 'auto' dispatch: flash for attention with >= 128 keys (attn1, and
-    the adapter when cross-frame is on), temporal for motion modules with
-    S >= 128 tokens (two attentions each).  ``flash_min`` counts only the
-    flash sites with at least that many keys; ``temporal_min=0`` counts the
-    temporal kernel forced at every motion module."""
+    the adapter when cross-frame is on, and the IP attention when the IP
+    head gives ``ip_tokens`` >= 128 tokens: full_face's 257), temporal for
+    motion modules with S >= 128 tokens (two attentions each).
+    ``flash_min`` counts only the flash sites with at least that many keys;
+    ``temporal_min=0`` counts the temporal kernel forced at every motion
+    module; ``cached`` counts an evaluation from cached down-path features
+    (``encoder_cache=2``), which runs mid and up only."""
     flash = temporal = 0
     n = ucfg.num_blocks
     per_block = ucfg.transformer_layers_per_block * (
         1 + (1 if ucfg.use_i2v_adapter and cross_frame else 0)
     )
+    ip_per_block = ucfg.transformer_layers_per_block if ip_tokens >= max(128, flash_min) else 0
 
     def site(tokens, layers, has_attn, motion):
         nonlocal flash, temporal
         if tokens >= max(128, flash_min) and has_attn:
             flash += layers * per_block
+        if has_attn:
+            flash += layers * ip_per_block
         if tokens >= temporal_min and motion:
             temporal += layers * 2
 
-    for i in range(n):
+    for i in range(0 if cached else n):
         s = (latent >> i) ** 2
         site(s, ucfg.layers_per_block, ucfg.down_block_has_attention[i], ucfg.use_motion_modules)
     s_mid = (latent >> (n - 1)) ** 2
@@ -237,20 +254,20 @@ def launches_per_unet_eval(ucfg, latent: int, cross_frame: bool, flash_min: int 
     return flash, temporal
 
 
-def _resnet_conv_sites(ucfg, latent: int) -> dict:
+def _resnet_conv_sites(ucfg, latent: int, cached: bool = False) -> dict:
     """``{(H, C, Cout): launches}``: the 3x3 convs of one VideoUNet
     evaluation's 22 resnets (two per resnet: C -> Cout and Cout -> Cout at
-    the block's resolution H = W)."""
+    the block's resolution H = W); ``cached`` leaves out the down path's."""
     sites, chans, n = {}, ucfg.block_out_channels, ucfg.num_blocks
 
-    def resnet(h, cin, cout):
+    def resnet(h, cin, cout, count=True):
         for shape in ((h, cin, cout), (h, cout, cout)):
-            sites[shape] = sites.get(shape, 0) + 1
+            sites[shape] = sites.get(shape, 0) + int(count)
 
     skips, cin = [chans[0]], chans[0]
     for i in range(n):
         for j in range(ucfg.layers_per_block):
-            resnet(latent >> i, cin if j == 0 else chans[i], chans[i])
+            resnet(latent >> i, cin if j == 0 else chans[i], chans[i], count=not cached)
             skips.append(chans[i])
         if i < n - 1:
             skips.append(chans[i])
@@ -262,7 +279,7 @@ def _resnet_conv_sites(ucfg, latent: int) -> dict:
         for j in range(ucfg.layers_per_block + 1):
             resnet(latent >> (n - 1 - i), (x_ch if j == 0 else out) + skips.pop(), out)
         x_ch = out
-    return sites
+    return {k: v for k, v in sites.items() if v}
 
 
 def conv_sites(ucfg, latent: int):
@@ -275,12 +292,12 @@ def conv_sites(ucfg, latent: int):
     return [(h, c, co, count) for (h, c, co), count in _resnet_conv_sites(ucfg, latent).items()]
 
 
-def int8_unet_sites(ucfg, latent: int):
+def int8_unet_sites(ucfg, latent: int, cached: bool = False):
     """``[(H, C, Cout, launches)]``: the stride-1 int8 convs of one VideoUNet
     evaluation under ``int8_conv`` (the int8 conv kernel's shapes): the
     resnet convs, and each up block's upsample conv at the doubled
-    resolution (47 at SD1.5 width)."""
-    sites = _resnet_conv_sites(ucfg, latent)
+    resolution (47 at SD1.5 width; 31 for a ``cached`` evaluation)."""
+    sites = _resnet_conv_sites(ucfg, latent, cached)
     chans, n = ucfg.block_out_channels, ucfg.num_blocks
     for i, out in enumerate(reversed(chans)):
         if i < n - 1:
@@ -289,12 +306,13 @@ def int8_unet_sites(ucfg, latent: int):
     return [(h, c, co, count) for (h, c, co), count in sites.items()]
 
 
-def int8_downsample_sites(ucfg, latent: int):
+def int8_downsample_sites(ucfg, latent: int, cached: bool = False):
     """``[(H, C, Cout, launches)]``: the stride-2 int8 convs of one
     evaluation under ``int8_conv`` (input resolution H), each an int8 im2col
-    and one K7 launch of M = B*(H/2)^2, K = 9*C, N = Cout."""
+    and one K7 launch of M = B*(H/2)^2, K = 9*C, N = Cout; none in a
+    ``cached`` evaluation (no down path)."""
     chans = ucfg.block_out_channels
-    return [(latent >> i, chans[i], chans[i], 1) for i in range(ucfg.num_blocks - 1)]
+    return [] if cached else [(latent >> i, chans[i], chans[i], 1) for i in range(ucfg.num_blocks - 1)]
 
 
 def int8_decoder_sites(vcfg, latent: int):
@@ -325,16 +343,42 @@ def clip_denoise_steps(steps: int = 25, strength: float = 0.9) -> int:
     return len(ddim_schedule_arrays(SchedulerConfig(), steps, strength)[0])
 
 
-def int8_launches(model_cfg, latent: int) -> dict:
+def int8_launches(model_cfg, latent: int, cached: bool = False) -> dict:
     """Launches of the int8 conv kernel, of K7 and of the weight quantiser
-    (one per int8 conv of either kind) per serving UNet evaluation and per
-    decode, under the serving default."""
+    (one per int8 conv of either kind) per serving UNet evaluation (a
+    ``cached`` one: mid and up only) and per decode, under the serving
+    default."""
     ucfg = model_cfg.unet.replace(int8_conv=True)
-    convs = sum(n for *_, n in int8_unet_sites(ucfg, latent))
-    downs = sum(n for *_, n in int8_downsample_sites(ucfg, latent))
+    convs = sum(n for *_, n in int8_unet_sites(ucfg, latent, cached))
+    downs = sum(n for *_, n in int8_downsample_sites(ucfg, latent, cached))
     dec = sum(n for *_, n in int8_decoder_sites(model_cfg.vae, latent))
     return {"per_eval": {"int8_conv3x3_kernel": convs, "int8_matmul": downs, "quantize_weight": convs + downs},
             "per_decode": {"int8_conv3x3_kernel": dec, "int8_matmul": 0, "quantize_weight": dec}}
+
+
+def request_launches(model_cfg, latent: int, steps: int, *, ip_tokens: int = 0, encoder_cache: int = 1,
+                     windows: int = 1, decode_calls: int = 1, int8: bool = True) -> dict:
+    """Every counted kernel's launches in one request of ``steps`` denoise
+    steps: each step evaluates the UNet once per temporal window (launches
+    per evaluation do not depend on its batch, so a cond-only step counts
+    as a CFG one); under ``encoder_cache=2`` every second step of the
+    leading pairs is a cached evaluation; then ``decode_calls`` decoder
+    calls (slices or tiles; 0 for latents)."""
+    cached = steps // 2 if encoder_cache > 1 else 0
+    full = steps - cached
+    counts = {}
+    for n_evals, is_cached in ((full, False), (cached, True)):
+        flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True, ip_tokens=ip_tokens,
+                                                 cached=is_cached)
+        add = {"flash_attention": flash, "temporal_attention_cs": temporal}
+        if int8:
+            add.update(int8_launches(model_cfg, latent, is_cached)["per_eval"])
+        for k, v in add.items():
+            counts[k] = counts.get(k, 0) + n_evals * windows * v
+    if int8:
+        for k, v in int8_launches(model_cfg, latent)["per_decode"].items():
+            counts[k] = counts.get(k, 0) + decode_calls * v
+    return expected_counts(**counts)
 
 
 def conv_launches_per_unet_eval(ucfg) -> int:
@@ -429,28 +473,32 @@ def phase_build(rehearse: bool) -> None:
         raise AssertionError(f"build: kernels that must not spill do: {spills}")
 
 
-def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=False):
+def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=False, nk=None,
+                other_weights=None):
     """One K1 shape: kernel vs plain in fp32 and bf16, then bf16 timings.
-    ``row_major`` stores q, k, v as (B, H, N, D) and calls the
-    ``transposed_io=False`` entry (the reference's row-major kernel, K5)."""
+    ``n`` queries and ``nk`` keys (default ``n``).  ``row_major`` stores q,
+    k, v as (B, H, N, D) and calls the ``transposed_io=False`` entry (the
+    reference's row-major kernel, K5).  ``other_weights`` adds launch
+    weights on other paths (e.g. per full_face evaluation)."""
     import torch.nn.functional as F
 
     from i2v_adapter_tpu_torch.ops.attention import _plain_attention, flash_attention
 
     h = 8
-    g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d)
+    nk = n if nk is None else nk
+    g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d + (nk - n) * 7)
     rep = bq // bkv
     scale = 1.0 / math.sqrt(d)
     if row_major:
-        q32, k32, v32 = (torch.randn(b, h, n, d, generator=g, device=dev).transpose(1, 2)
-                         for b in (bq, bkv, bkv))
+        q32, k32, v32 = (torch.randn(b, h, t, d, generator=g, device=dev).transpose(1, 2)
+                         for b, t in ((bq, n), (bkv, nk), (bkv, nk)))
     else:
         # q as a strided view of a wider (fused-projection-like) buffer
         q32 = torch.randn(bq, n, 2 * h * d, generator=g, device=dev)[..., : h * d].unflatten(-1, (h, d))
-        k32 = torch.randn(bkv, n, h, d, generator=g, device=dev)
-        v32 = torch.randn(bkv, n, h, d, generator=g, device=dev)
-    row = {"name": name, "bq": bq, "bkv": bkv, "kv_repeat": rep, "n": n, "d": d,
-           "heads": h, "static_max": static_max, "launches_per_eval": weight,
+        k32 = torch.randn(bkv, nk, h, d, generator=g, device=dev)
+        v32 = torch.randn(bkv, nk, h, d, generator=g, device=dev)
+    row = {"name": name, "bq": bq, "bkv": bkv, "kv_repeat": rep, "n": n, "nk": nk, "d": d,
+           "heads": h, "static_max": static_max, "launches_per_eval": weight, **(other_weights or {}),
            "storage": "(B,H,N,D)" if row_major else "(B,N,H,D)"}
     flash_attention = functools.partial(flash_attention, transposed_io=not row_major)
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -471,8 +519,8 @@ def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=F
     ke, ve = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
     row["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), ke.transpose(1, 2), ve.transpose(1, 2), scale=scale), iters)
-    flops = 4.0 * bq * h * n * n * d
-    nbytes = 2.0 * h * d * (2 * bq * n + 2 * bkv * n)
+    flops = 4.0 * bq * h * n * nk * d
+    nbytes = 2.0 * h * d * (2 * bq * n + 2 * bkv * nk)
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     ok = row["rel_err_fp32"] <= TOL_FP32 and row["rel_err_bf16"] <= TOL_BF16
@@ -539,7 +587,8 @@ def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
     return row, ok
 
 
-def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_weight=0):
+def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_weight=0,
+                   other_weights=None):
     """One K2 shape.  ``forced`` goes through ``temporal_attention(impl=
     "kernel")``, the dispatcher with the kernel forced (the reference's
     all-of-C kernel K6, which its forced impl also runs below 128 tokens)."""
@@ -562,7 +611,7 @@ def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_
     k32 = torch.randn(b, f, s, c, generator=g, device=dev)
     v32 = torch.randn(b, f, s, c, generator=g, device=dev)
     row = {"name": name, "b": b, "fq": fq, "f": f, "s": s, "c": c, "heads": heads,
-           "launches_per_eval": weight, "launches_per_step": step_weight}
+           "launches_per_eval": weight, "launches_per_step": step_weight, **(other_weights or {})}
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         q, k, v = (x.to(dt) for x in (q32, k32, v32))
         got = temporal_attention_cs(q, k, v, heads)
@@ -786,6 +835,21 @@ def phase_kernels(dev, rehearse: bool):
         ("train attn1 N256 D80", 32, 32, 256, 80, 64.0, 0),
         ("train adapter N256 D80", 32, 2, 256, 80, 64.0, 0),
     ]
+    # the full_face IP attention (257 keys) at every level of a 512 px,
+    # 16-frame CFG evaluation, weighted by its launches per full_face
+    # evaluation; and the cross-frame attention of temporal tiling's
+    # anchored windows (17 frames, kv_repeat 17; a CFG-doubled window is
+    # Bq = 34), weighted by its launches per window evaluation of a
+    # 48-frame clip (3 of its 4 windows are anchored)
+    ip_cases = [
+        ("ip N4096 K257 D40", 32, 32, 4096, 40, 5),
+        ("ip N1024 K257 D80", 32, 32, 1024, 80, 5),
+        ("ip N256 K257 D160", 32, 32, 256, 160, 5),
+        ("ip N64 K257 D160", 32, 32, 64, 160, 1),
+    ]
+    window_cases = [("window adapter N4096 D40 rep17", 34, 2, 4096, 40, 5),
+                    ("window adapter N1024 D80 rep17", 34, 2, 1024, 80, 5),
+                    ("window adapter N256 D160 rep17", 34, 2, 256, 160, 5)]
     # (name, bq, bkv, n, d, launches per 256 px train step)
     bwd_cases = [
         ("train attn1 N1024 D40", 32, 32, 1024, 40, 4),
@@ -804,6 +868,13 @@ def phase_kernels(dev, rehearse: bool):
         ("motion F32 S1024 C640", 2, 32, 32, 1024, 640, 0),
         ("motion S576 C1280", 2, 16, 16, 576, 1280, 0),
         ("motion F32 S256 C1280", 2, 32, 32, 256, 1280, 0),
+    ]
+    # the anchored windows' motion modules: F = 17 (10 launches per window
+    # evaluation at S = 4096 and 1024 each)
+    window_temporal_cases = [
+        ("window motion F17 S4096 C320", 2, 17, 17, 4096, 320, 10),
+        ("window motion F17 S1024 C640", 2, 17, 17, 1024, 640, 10),
+        ("window motion F17 S256 C1280", 2, 17, 17, 256, 1280, 10),
     ]
     # K2 at the 256 px training step: 20 launches at each site per step
     # (10 motion attentions, forward and the checkpointed recompute)
@@ -896,6 +967,16 @@ def phase_kernels(dev, rehearse: bool):
         row, ok = _flash_case(*case[:-1], dev=dev, iters=5, weight=case[-1])
         rows["flash_attention"].append(row)
         failed += [] if ok else [row["name"]]
+    for name, bq, bkv, n, d, w in ip_cases:
+        row, ok = _flash_case(name, bq, bkv, n, d, 64.0, dev, 5, 0, nk=257,
+                              other_weights={"launches_per_full_face_eval": w})
+        rows["flash_attention"].append(row)
+        failed += [] if ok else [row["name"]]
+    for name, bq, bkv, n, d, w in window_cases:
+        row, ok = _flash_case(name, bq, bkv, n, d, 64.0, dev, 5, 0,
+                              other_weights={"launches_per_window_eval": w})
+        rows["flash_attention"].append(row)
+        failed += [] if ok else [row["name"]]
     for case in bwd_cases:
         row, ok = _flash_bwd_case(*case[:-1], dev=dev, iters=5, weight=case[-1])
         rows["flash_attention_bwd"].append(row)
@@ -906,6 +987,11 @@ def phase_kernels(dev, rehearse: bool):
         failed += [] if ok else [row["name"]]
     for case in train_temporal_cases:
         row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=0, step_weight=case[-1])
+        rows["temporal_attention_cs"].append(row)
+        failed += [] if ok else [row["name"]]
+    for case in window_temporal_cases:
+        row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=0,
+                                 other_weights={"launches_per_window_eval": case[-1]})
         rows["temporal_attention_cs"].append(row)
         failed += [] if ok else [row["name"]]
     emit({"phase": "kernels", "tol_fp32": TOL_FP32, "tol_bf16": TOL_BF16,
@@ -1283,7 +1369,7 @@ def phase_pretrained(model_cfg, dev, rehearse: bool) -> dict:
             or line["tokenizer_context"] != model_cfg.text_encoder.max_position_embeddings:
         raise AssertionError(f"pretrained: adapter mismatched {mismatched[:4]}, ip {line['ip_variant']}, "
                              f"tokenizer {line['tokenizer_context']}")
-    return {"root": root, "checkpoint_dir": ckpt}
+    return {"root": root, "checkpoint_dir": ckpt, "adapter": adapter}
 
 
 def _condition_image(size: int) -> str:
@@ -1294,24 +1380,14 @@ def _condition_image(size: int) -> str:
     return path
 
 
-def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
-    """The daemon in-process over four queued requests; each request's
-    launches are read around ``process_request`` and held to the config's
-    derivation for its denoise steps plus one decode."""
-    from PIL import Image
-
+def _serve_queue(requests: dict, tag: str, run):
+    """Queue ``requests`` (in order) under ``WORK_DIR/<tag>/``, then
+    ``run(req_dir, out_dir)`` the daemon over them with each request's
+    launches read around ``process_request``.  Returns (served, per-request
+    launches and timings, result JSONs, request files, out_dir)."""
     from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
-    from i2v_adapter_tpu_torch.utils.image import export_to_gif
 
-    size, frames, flags = serving_sizes(rehearse)
-    image = _condition_image(size)
-    req_dir, out_dir = os.path.join(WORK_DIR, "requests"), os.path.join(WORK_DIR, "output")
-    requests = {
-        "a_defaults": {"prompt": "a cat", "image": image, "seed": 0},
-        "b_five_steps": {"prompt": "a dog", "image": image, "seed": 1, "num_inference_steps": 5, "format": "npy"},
-        "c_missing_image": {"prompt": "a cat", "image": os.path.join(WORK_DIR, "missing.png")},
-        "d_encoder_cache": {"prompt": "a cat", "image": image, "encoder_cache": 2},
-    }
+    req_dir, out_dir = os.path.join(WORK_DIR, tag, "requests"), os.path.join(WORK_DIR, tag, "output")
     os.makedirs(req_dir)
     for i, (rid, req) in enumerate(requests.items()):
         path = os.path.join(req_dir, rid + ".json")
@@ -1330,54 +1406,127 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
             per_request[os.path.basename(out_prefix)] = {
                 "launches": {k: after[k] - before[k] for k in after}, "timings": dict(pipe.last_timings)}
 
-    argv = ["--pretrained_model_path", ckpt["root"], "--task_name", TASK, "--checkpoint_dir",
-            ckpt["checkpoint_dir"], "--requests_dir", req_dir, "--output_dir", out_dir,
-            "--max_requests", str(len(requests))] + flags
-    if not rehearse:
-        torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
     serve_mod.process_request = counted
-    t0 = time.perf_counter()
     try:
-        served = serve_mod.main(argv, model_config=model_cfg)
+        served = run(req_dir, out_dir)
     finally:
         serve_mod.process_request = real
-    total_s = time.perf_counter() - t0
-    counts = launch_counts()
     results = {}
     for rid in requests:
         with open(os.path.join(out_dir, rid + ".result.json")) as f:
             results[rid] = json.load(f)
+    return served, per_request, results, sorted(os.listdir(req_dir)), out_dir
+
+
+def _check_requests(model_cfg, latent, rehearse, per_request, results, specs, failed) -> dict:
+    """Each request against its spec ``(steps, request_launches kwargs,
+    output shape or the error's start)``: its denoise steps, its launches as
+    the config derives them, its result; returns a summary per request
+    (latency, prep / step / decode ms)."""
+    out = {}
+    for rid, (steps, kw, want) in specs.items():
+        rec, res = per_request.get(rid, {"launches": {}, "timings": {}}), results[rid]
+        step_ms = rec["timings"].get("step_ms", [])
+        expected = expected_counts()
+        if steps and not rehearse:
+            expected = request_launches(model_cfg, latent, steps, **kw)
+        rec["expected_launches"] = expected
+        if rec["launches"] != expected:
+            failed.append(f"{rid}: launches {rec['launches']} != {expected}")
+        if len(step_ms) != steps:
+            failed.append(f"{rid}: {len(step_ms)} denoise steps, not {steps}")
+        if isinstance(want, str):
+            if res["ok"] or not res["error"].startswith(want):
+                failed.append(f"{rid}: {res}")
+        elif not res["ok"] or res["shape"] != want:
+            failed.append(f"{rid}: {res}")
+        out[rid] = {"ok": res["ok"], "latency_s": res.get("latency_s"), "prep_ms": rec["timings"].get("prep_ms"),
+                    "step_ms_mean": float(np.mean(step_ms)) if step_ms else None, "steps": len(step_ms),
+                    "decode_ms": rec["timings"].get("decode_ms"), "launches_as_derived": rec["launches"] == expected}
+    return out
+
+
+def _npy_ok(path, shape) -> bool:
+    if not os.path.exists(path):
+        return False
+    clip = np.load(path)
+    return clip.dtype == np.uint8 and list(clip.shape) == shape and int(clip.max()) > int(clip.min())
+
+
+def _split_ms(step_ms, first) -> dict:
+    """Mean step ms of ``first`` (indices or a count) and of the rest."""
+    idx = set(first) if not isinstance(first, int) else set(range(first))
+    a = [t for i, t in enumerate(step_ms) if i in idx]
+    b = [t for i, t in enumerate(step_ms) if i not in idx]
+    return {"n": [len(a), len(b)], "mean_ms": [float(np.mean(a)) if a else None, float(np.mean(b)) if b else None]}
+
+
+def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """The daemon's ``main`` in-process over its queue: (a) the CLI's
+    defaults, (b) 5 steps, (c) a missing image, (d) ``encoder_cache: 2`` and
+    (e) ``cfg_cutoff: 0.5`` at 25 steps, (j) a request over the card's
+    memory envelope, then (f) a 48-frame clip tiled into 4 windows; each
+    request's launches are read around ``process_request`` and held to the
+    config's derivation."""
+    from PIL import Image
+
+    from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import cfg_steps
+    from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows
+    from i2v_adapter_tpu_torch.utils.image import export_to_gif
+
+    size, frames, flags = serving_sizes(rehearse)
+    long_frames = 12 if rehearse else 48
+    image = _condition_image(size)
+    npy = {"format": "npy"}
+    requests = {
+        "a_defaults": {"prompt": "a cat", "image": image, "seed": 0},
+        "b_five_steps": {"prompt": "a dog", "image": image, "seed": 1, "num_inference_steps": 5, **npy},
+        "c_missing_image": {"prompt": "a cat", "image": os.path.join(WORK_DIR, "missing.png")},
+        "d_encoder_cache": {"prompt": "a cat", "image": image, "seed": 2, "encoder_cache": 2, **npy},
+        "e_cfg_cutoff": {"prompt": "a cat", "image": image, "seed": 2, "cfg_cutoff": 0.5, **npy},
+        "j_over_envelope": {"prompt": "a cat", "image": image, "height": 4096, "width": 4096},
+        "f_tiled_48": {"prompt": "a cat", "image": image, "seed": 3, "num_inference_steps": 5,
+                       "num_frames": long_frames, **npy},
+    }
+    argv = ["--pretrained_model_path", ckpt["root"], "--task_name", TASK, "--checkpoint_dir",
+            ckpt["checkpoint_dir"], "--max_requests", str(len(requests))] + flags
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served, per_request, results, renamed, out_dir = _serve_queue(
+        requests, "serve", lambda req_dir, out_dir: serve_mod.main(
+            argv + ["--requests_dir", req_dir, "--output_dir", out_dir], model_config=model_cfg))
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
     latent = size // model_cfg.vae.spatial_scale_factor
-    flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True)
-    int8 = int8_launches(model_cfg, latent)
+    steps25, steps5 = clip_denoise_steps(25, 0.9), clip_denoise_steps(5, 0.9)
+    cap = model_cfg.unet.motion_max_seq_length
+    window = min(16, cap - 1)
+    windows = len(temporal_windows(long_frames, window, max(1, min(12, window - 1))))
+    shape = [1, frames, size, size, 3]
+    specs = {
+        "a_defaults": (steps25, {}, shape),
+        "b_five_steps": (steps5, {}, shape),
+        "c_missing_image": (0, {}, "FileNotFoundError"),
+        "d_encoder_cache": (steps25, {"encoder_cache": 2}, shape),
+        "e_cfg_cutoff": (steps25, {}, shape),
+        "j_over_envelope": (0, {}, "ValueError: request of"),
+        "f_tiled_48": (steps5, {"windows": windows}, [1, long_frames, size, size, 3]),
+    }
     failed = []
-    for rid, rec in per_request.items():
-        steps = len(rec["timings"].get("step_ms", []))
-        want = expected_counts(flash_attention=steps * flash, temporal_attention_cs=steps * temporal,
-                               **{k: steps * v + (int8["per_decode"][k] if steps else 0)
-                                  for k, v in int8["per_eval"].items()})
-        rec["expected_launches"] = expected_counts() if rehearse else want
-        if rec["launches"] != rec["expected_launches"]:
-            failed.append(f"{rid}: launches {rec['launches']} != {rec['expected_launches']}")
-    want_steps = {"a_defaults": clip_denoise_steps(25, 0.9), "b_five_steps": clip_denoise_steps(5, 0.9),
-                  "c_missing_image": 0, "d_encoder_cache": 0}
-    for rid, n in want_steps.items():
-        if len(per_request.get(rid, {}).get("timings", {}).get("step_ms", [])) != n:
-            failed.append(f"{rid}: not {n} denoise steps")
-    want_shape = [1, frames, size, size, 3]
-    for rid in ("a_defaults", "b_five_steps"):
-        if not results[rid]["ok"] or results[rid]["shape"] != want_shape:
-            failed.append(f"{rid}: {results[rid]}")
-    for rid, error in (("c_missing_image", "FileNotFoundError"), ("d_encoder_cache", "NotImplementedError")):
-        if results[rid]["ok"] or not results[rid]["error"].startswith(error):
-            failed.append(f"{rid}: {results[rid]}")
+    summary_by_request = _check_requests(model_cfg, latent, rehearse, per_request, results, specs, failed)
+    if "memory envelope" not in results["j_over_envelope"].get("error", ""):
+        failed.append(f"j_over_envelope: {results['j_over_envelope']}")
+    for rid, want_frames in (("b_five_steps", frames), ("d_encoder_cache", frames), ("e_cfg_cutoff", frames),
+                             ("f_tiled_48", long_frames)):
+        if not _npy_ok(os.path.join(out_dir, rid + ".npy"), [1, want_frames, size, size, 3]):
+            failed.append(f"{rid}.npy: not a {want_frames}-frame uint8 clip with content")
     clip = np.load(os.path.join(out_dir, "b_five_steps.npy"))
     t0 = time.perf_counter()  # the host's GIF export of one clip, as in request (a)
     export_to_gif(clip[0], os.path.join(out_dir, "b_five_steps_0.gif"))
     gif_export_s = time.perf_counter() - t0
-    if clip.dtype != np.uint8 or list(clip.shape) != want_shape or int(clip.max()) == int(clip.min()):
-        failed.append(f"b_five_steps.npy: {clip.dtype} {clip.shape}, range {clip.min()}-{clip.max()}")
     gif = results["a_defaults"].get("outputs", [None])[0]
     gif_frames = None
     if gif and os.path.exists(gif):
@@ -1385,14 +1534,15 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
             gif_frames = [im.n_frames, *im.size]
     if gif_frames != [frames, size, size]:
         failed.append(f"a_defaults gif {gif}: frames, width, height {gif_frames}")
-    renamed = sorted(os.listdir(req_dir))
-    if served != len(requests) or renamed != ["a_defaults.json.done", "b_five_steps.json.done",
-                                              "c_missing_image.json.failed", "d_encoder_cache.json.failed"]:
+    done = [f"{rid}.json.{'failed' if isinstance(spec[2], str) else 'done'}" for rid, spec in specs.items()]
+    if served != len(requests) or renamed != sorted(done):
         failed.append(f"served {served}, request files {renamed}")
     if counts != {k: sum(r["launches"][k] for r in per_request.values()) for k in counts}:
         failed.append(f"launches outside the requests: {counts}")
     a = per_request.get("a_defaults", {}).get("timings", {})
     step_ms = a.get("step_ms") or [float("nan")]
+    d_ms = per_request.get("d_encoder_cache", {}).get("timings", {}).get("step_ms", [])
+    e_ms = per_request.get("e_cfg_cutoff", {}).get("timings", {}).get("step_ms", [])
     emit({
         "phase": "serve", "argv": argv, "served": served, "seconds": total_s,
         "peak_memory_gb": None if rehearse else torch.cuda.max_memory_allocated() / 1e9,
@@ -1401,14 +1551,263 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
         "clip_timings_ms": {"prep": a.get("prep_ms"), "step_mean": float(np.mean(step_ms)),
                             "step_min": float(np.min(step_ms)), "step_max": float(np.max(step_ms)),
                             "steps": len(step_ms), "decode": a.get("decode_ms")},
+        "requests": summary_by_request,
+        # (d): full steps at even indices of the pairs, cached at odd; (e):
+        # the leading CFG steps, then cond-only
+        "encoder_cache_full_vs_cached": _split_ms(d_ms, range(0, len(d_ms) - len(d_ms) % 2, 2)) if d_ms else None,
+        "cfg_cutoff_cfg_vs_cond": _split_ms(e_ms, cfg_steps(0.5, len(e_ms))) if e_ms else None,
+        "tiled_windows": windows,
         "gif_export_s": gif_export_s,
         "per_request": per_request, "gif_frames_width_height": gif_frames,
-        "launches_per_unet_eval": {"flash_attention": flash, "temporal_attention_cs": temporal,
-                                   **int8["per_eval"]},
-        "launches_per_decode": int8["per_decode"], "launches": counts, "failed": failed,
+        "launches_per_unet_eval": {"flash_attention": launches_per_unet_eval(model_cfg.unet, latent, True)[0],
+                                   "temporal_attention_cs": launches_per_unet_eval(model_cfg.unet, latent, True)[1],
+                                   **int8_launches(model_cfg, latent)["per_eval"]},
+        "launches_per_cached_eval": int8_launches(model_cfg, latent, cached=True)["per_eval"],
+        "launches_per_decode": int8_launches(model_cfg, latent)["per_decode"], "launches": counts,
+        "failed": failed,
     })
     if failed:
         raise AssertionError(f"serve: {failed}")
+    return counts
+
+
+# the card's memory budgets: the share of its memory the pipeline plans to
+# use (the rest: the CUDA context, the allocator's fragmentation, cuDNN and
+# cuBLAS workspaces), and the share of what the weights leave that goes to
+# one UNet evaluation's working set (the rest: encoder_cache=2's features)
+MEMORY_USABLE = 0.9
+ENVELOPE_SHARE = 0.75
+ENVELOPE_EVALS = (32, 64)  # frame-evaluations measured at 512 px
+DECODE_FRAMES = (8, 16)  # frames per decoder call measured at 512 px
+
+
+def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
+    """Peak memory of one 512 px UNet evaluation (the serving default) at
+    ``ENVELOPE_EVALS`` frame-evaluations, and of one decoder call at
+    ``DECODE_FRAMES`` frames, each fitted as weights + a + b * count; the
+    budgets this card gives (``MEMORY_USABLE``; ``ENVELOPE_SHARE`` for the
+    evaluation beside the encoder cache, all the room for the decode, which
+    runs alone), against the pipeline's constants; the encoder cache of one
+    full step against ``_encoder_cache_elems_per_eval``; then one
+    evaluation and one decoder call at the constants' envelopes, whose peaks
+    must stay inside the card's usable share."""
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import _encoder_cache_elems_per_eval
+
+    if rehearse:
+        return {"skipped": "rehearsal: memory is the card's"}
+    ucfg, lat = model_cfg.unet, 64
+    tokens = lat * lat
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def peak_of_eval(evals):
+        clips = evals // 16
+        sample = torch.randn(clips, 16, lat, lat, ucfg.in_channels, generator=g, device=dev).to(pipe.dtype)
+        text = torch.randn(clips, 77, ucfg.cross_attention_dim, generator=g, device=dev).to(pipe.dtype)
+        img = torch.randn(clips, ucfg.image_embed_dim, generator=g, device=dev).to(pipe.dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            out = pipe.unet(sample, torch.full((clips,), 501.0, device=dev), text, img,
+                            enable_cross_frame_attn=True)
+            finite = bool(torch.isfinite(out).all())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del sample, text, img, out
+        torch.cuda.empty_cache()
+        return peak, finite
+
+    def peak_of_decode(frames):
+        z = torch.randn(frames, lat, lat, 4, generator=g, device=dev).to(pipe.dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            finite = bool(torch.isfinite(pipe.vae.decode(z)).all())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del z
+        torch.cuda.empty_cache()
+        return peak, finite
+
+    def fit(peaks):
+        (n0, p0), (n1, p1) = sorted(peaks.items())
+        slope = (p1 - p0) / (n1 - n0)
+        return slope, p0 - slope * n0
+
+    peaks = {e: peak_of_eval(e)[0] for e in ENVELOPE_EVALS}
+    per_eval, fixed = fit(peaks)
+    room = total * MEMORY_USABLE - weights - fixed
+    evals_max = int(room * ENVELOPE_SHARE // per_eval) // 16 * 16
+    cache_budget = int(room * (1 - ENVELOPE_SHARE) // 1e9) * 1_000_000_000
+    const_evals = pipe.MAX_EVAL_TOKENS // tokens
+    decode_peaks = {n: peak_of_decode(n)[0] for n in DECODE_FRAMES}
+    per_frame, decode_fixed = fit(decode_peaks)
+    decode_frames_max = int((total * MEMORY_USABLE - weights - decode_fixed) // per_frame)
+    # the encoder cache of one full step at the serving shape (16 frames, CFG)
+    parts = pipe._build_parts(1, 16, 512, 512, 25, 0.9, 7.5, True, True)
+    consts = (torch.zeros(1, lat, lat, 4, device=dev), torch.zeros(2, 77, ucfg.cross_attention_dim, device=dev,
+                                                                     dtype=pipe.dtype),
+              torch.zeros(2, ucfg.image_embed_dim, device=dev, dtype=pipe.dtype))
+    latents = torch.randn(1, 16, lat, lat, 4, generator=g, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        latents, caches = parts[5][0](consts, latents, 501, 461)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before - latents.numel() * latents.element_size()
+    tensors = [caches[0][0], *caches[0][1]]
+    cache_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    formula = 32 * _encoder_cache_elems_per_eval(ucfg, lat, lat) * 2
+    del caches, latents, tensors, parts, consts
+    torch.cuda.empty_cache()
+    # one evaluation and one decoder call at the pipeline's envelopes, their
+    # peaks held to the card
+    at_envelope, finite = peak_of_eval(const_evals // 16 * 16)
+    const_frames = pipe.MAX_DECODE_TOKENS // tokens
+    decode_at_envelope, decode_finite = peak_of_decode(const_frames)
+    out = {
+        "card_total_bytes": total, "weights_bytes": weights,
+        "eval_peak_bytes": {str(k): v for k, v in peaks.items()},
+        "per_eval_bytes": per_eval, "fixed_bytes": fixed,
+        "usable_share": MEMORY_USABLE, "envelope_share": ENVELOPE_SHARE,
+        "derived_max_eval_tokens": evals_max * tokens, "derived_max_enc_cache_bytes": cache_budget,
+        "max_eval_tokens": pipe.MAX_EVAL_TOKENS, "max_enc_cache_bytes": pipe.MAX_ENC_CACHE_BYTES,
+        "encoder_cache_bytes_one_step": cache_bytes, "encoder_cache_formula_bytes": formula,
+        "encoder_cache_held_bytes": held,
+        "envelope_evals": const_evals, "envelope_eval_peak_bytes": at_envelope,
+        "envelope_eval_peak_with_weights_share": (weights + at_envelope) / total, "envelope_eval_finite": finite,
+        "decode_peak_bytes": {str(k): v for k, v in decode_peaks.items()},
+        "decode_per_frame_bytes": per_frame, "decode_fixed_bytes": decode_fixed,
+        "derived_max_decode_tokens": decode_frames_max * tokens, "max_decode_tokens": pipe.MAX_DECODE_TOKENS,
+        "decode_envelope_frames": const_frames, "decode_envelope_peak_bytes": decode_at_envelope,
+        "decode_envelope_peak_with_weights_share": (weights + decode_at_envelope) / total,
+        "decode_envelope_finite": decode_finite,
+    }
+    failed = []
+    if cache_bytes != formula:
+        failed.append(f"encoder cache {cache_bytes} bytes, the formula says {formula}")
+    if pipe.MAX_EVAL_TOKENS > evals_max * tokens or pipe.MAX_ENC_CACHE_BYTES > cache_budget \
+            or pipe.MAX_DECODE_TOKENS > decode_frames_max * tokens:
+        failed.append("a budget constant exceeds what this run's measurements allow")
+    if weights + at_envelope > total * MEMORY_USABLE or not finite:
+        failed.append(f"one evaluation at the envelope peaked at {weights + at_envelope} bytes of {total}")
+    if weights + decode_at_envelope > total * MEMORY_USABLE or not decode_finite:
+        failed.append(f"one decode at the envelope peaked at {weights + decode_at_envelope} bytes of {total}")
+    out["failed"] = failed
+    return out
+
+
+def _tiled_decode(pipe, model_cfg, dev, rehearse: bool) -> dict:
+    """``vae_tiling``'s decode (``decode_tiled``, 64-latent tiles) of 16
+    frames at 768 px, where it cuts 2 x 2 tiles, against the untiled decode
+    of the same latents at the serving default: PSNR, times, the int8 conv's
+    launches (one decoder per tile)."""
+    from i2v_adapter_tpu_torch.models.vae import decode_tiled
+
+    frames, lat, tile = (2, 12, 8) if rehearse else (16, 96, 64)
+    g = torch.Generator(device=dev).manual_seed(8)
+    z = torch.randn(frames, lat, lat, model_cfg.vae.latent_channels, generator=g, device=dev).to(pipe.dtype)
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        whole = pipe.vae.decode(z).float()
+        sync()
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        tiled = decode_tiled(pipe.vae.decode, z, tile_latent_size=tile).float()
+        sync()
+        t2 = time.perf_counter()
+        counts = launch_counts()
+    n_tiles = len(range(0, max(lat - tile // 4, 1), tile * 3 // 4)) ** 2
+    per_decode = int8_launches(model_cfg, lat)["per_decode"]
+    expected = expected_counts() if rehearse else expected_counts(
+        **{k: n_tiles * v for k, v in per_decode.items()})
+    finite = bool(torch.isfinite(tiled).all())
+    line = {"frames": frames, "latent": lat, "tile_latent_size": tile, "tiles": n_tiles,
+            "shape": list(tiled.shape), "psnr_db_vs_untiled": psnr(tiled.cpu().numpy(), whole.cpu().numpy()),
+            "untiled_ms": (t1 - t0) * 1e3, "tiled_ms": (t2 - t1) * 1e3, "finite": finite,
+            "launches": counts, "expected_launches": expected}
+    line["failed"] = [] if (finite and counts == expected and tiled.shape == whole.shape) else [
+        f"tiled decode: finite {finite}, launches {counts} != {expected}"]
+    return line
+
+
+def phase_serve_heads(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """The same directory with the standard head at the serving default: the
+    card's memory budgets, the tiled decode, then (g) a FreeU request
+    (``enable_freeu``); then the directory with (h) a plus and (i) a
+    full_face IP-Adapter file written beside it (seeded, the published
+    heads' geometry: 16 x 768 latents, 4 perceiver layers; 1280 -> 1280 ->
+    768), each loaded by ``from_pretrained`` and served one 5-step request
+    by the daemon's loop.  Launches per request held to the derivation
+    (full_face: the IP attention's 257 keys through K1 at every site)."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+    from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
+
+    synth = port_synth()
+    size, frames, _ = serving_sizes(rehearse)
+    latent = size // model_cfg.vae.spatial_scale_factor
+    image = _condition_image(size)
+    pcfg = PipelineConfig(num_frames=frames, height=size, width=size,
+                          dtype="float32" if rehearse else "bfloat16")
+    head_kw = dict(num_tokens=6, resampler_dim=12, depth=2) if rehearse else {}
+    ip_files = {}
+    for i, variant in enumerate(("plus", "full_face")):
+        ip_files[variant] = os.path.join(WORK_DIR, f"ip-adapter-{variant}.bin")
+        synth.save_ip_adapter(synth.make_ip_adapter_sd(synth.Draw(40 + i, np.float16, dev), model_cfg, variant,
+                                                       **head_kw), ip_files[variant])
+    steps5 = clip_denoise_steps(5, 0.9)
+    shape = [1, frames, size, size, 3]
+    req = {"prompt": "a cat", "image": image, "seed": 4, "num_inference_steps": 5, "format": "npy"}
+    failed, lines = [], {}
+    reset_launch_counts()
+    for head in ("standard", "plus", "full_face"):
+        t0 = time.perf_counter()
+        pipe = I2VAdapterPipeline.from_pretrained(
+            ckpt["root"], model_config=model_cfg, pipeline_config=pcfg, i2v_adapter_path=ckpt["adapter"],
+            ip_adapter_path=ip_files.get(head), device=dev)
+        load_s = time.perf_counter() - t0
+        line = {"load_s": load_s, "ip_variant": pipe.config.unet.ip_variant,
+                "ip_tokens": pipe.config.unet.ip_num_tokens}
+        if pipe.config.unet.ip_variant != head:
+            failed.append(f"{head}: loaded as {pipe.config.unet.ip_variant}")
+        if head == "standard":
+            line["memory"] = _memory_budgets(pipe, model_cfg, dev, rehearse)
+            line["tiled_decode"] = _tiled_decode(pipe, model_cfg, dev, rehearse)
+            failed += line["memory"].get("failed", []) + line["tiled_decode"]["failed"]
+            reset_launch_counts()  # the launches above are the checks', not a request's
+            pipe.enable_freeu()
+            rid = "g_freeu"
+        else:
+            rid = "h_plus" if head == "plus" else "i_full_face"
+        ip_tokens = pipe.config.unet.ip_num_tokens if head == "full_face" else 0
+        served, per_request, results, _, out_dir = _serve_queue(
+            {rid: req}, rid, lambda req_dir, out_dir: serve_mod.serve(pipe, req_dir, out_dir, max_requests=1))
+        line["requests"] = _check_requests(model_cfg, latent, rehearse, per_request, results,
+                                           {rid: (steps5, {"ip_tokens": ip_tokens}, shape)}, failed)
+        line["per_request"] = per_request
+        if served != 1:
+            failed.append(f"{rid}: served {served}")
+        if not _npy_ok(os.path.join(out_dir, rid + ".npy"), shape):
+            failed.append(f"{rid}.npy: not a {frames}-frame uint8 clip with content")
+        if head == "standard":
+            line["freeu"] = pipe.config.unet.freeu
+            pipe.disable_freeu()
+        lines[head] = line
+        del pipe
+        if not rehearse:
+            torch.cuda.empty_cache()
+    counts = launch_counts()
+    emit({"phase": "serve_heads", "ip_files": {k: os.path.getsize(v) for k, v in ip_files.items()},
+          "heads": lines, "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"serve_heads: {failed}")
     return counts
 
 
@@ -1642,10 +2041,12 @@ CSRC = "i2v_adapter_tpu_torch/csrc/"
 SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
-     ("pipeline", "pipeline_pallas", "serve", "cli", "train", "train_pallas"), "launches_per_eval"),
+     ("pipeline", "pipeline_pallas", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
-     ("pipeline", "pipeline_pallas", "serve", "cli", "train", "train_pallas"), "launches_per_eval"),
+     ("pipeline", "pipeline_pallas", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
      ("train", "train_pallas"), "launches_per_step"),
@@ -1658,12 +2059,12 @@ SUMMARY = (
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:871", ("unet_forced_temporal",),
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
-     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "serve", "int8_tool"),
+     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "serve", "serve_heads", "int8_tool"),
      "launches_per_eval"),
     ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "serve"), "launches_per_clip"),
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "serve", "serve_heads"), "launches_per_clip"),
     ("quantize_weight", "quantize_weight", "quantize_weight", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "serve"), "launches_per_clip"),
+     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "serve", "serve_heads"), "launches_per_clip"),
 )
 
 
@@ -1733,6 +2134,7 @@ def main(argv=None) -> int:
     ckpt = phase_pretrained(model_cfg, dev, rehearse)
     try:
         serve_counts = phase_serve(model_cfg, dev, rehearse, ckpt)
+        heads_counts = phase_serve_heads(model_cfg, dev, rehearse, ckpt)
         cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
@@ -1746,7 +2148,7 @@ def main(argv=None) -> int:
     if rows is not None:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
-            "serve": serve_counts, "cli": cli_counts, "train": train_counts,
+            "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
         idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]

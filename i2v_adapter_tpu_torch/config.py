@@ -215,9 +215,12 @@ class PipelineConfig(_ConfigBase):
     dtype: str = "bfloat16"
     # Serving-mode int8 convs (UNet 3x3s + VAE decoder), through ops/int8.py.
     int8_conv: bool = True
-    # Not ported yet: the pipeline refuses any value but these (off).
+    # Opt-in serving approximations (off by default): 2 reuses the UNet's
+    # down-path features every second step; < 1.0 runs the trailing steps
+    # on the conditional branch only.
     encoder_cache: int = 1
     cfg_cutoff: float = 1.0
+    # Temporal tiling of clips longer than motion_max_seq_length.
     temporal_window: int = 16
     temporal_stride: int = 12
 

@@ -111,7 +111,9 @@ class CLIPTextEncoder(nn.Module):
 
 class CLIPVisionEncoder(nn.Module):
     """pixel_values (B, H, W, 3), CLIP-normalised -> projected image
-    embedding (B, projection_dim), the IP-Adapter standard head's input."""
+    embedding (B, projection_dim), the IP-Adapter standard head's input;
+    with ``output_hidden_state=True`` also the penultimate layer's hidden
+    states (B, 1 + patches, hidden), the plus and full_face heads' input."""
 
     def __init__(self, config: CLIPVisionConfig, device: DeviceLike = None):
         super().__init__()
@@ -129,8 +131,10 @@ class CLIPVisionEncoder(nn.Module):
             self.post_layernorm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
             self.visual_projection = Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, pixel_values, dtype: Optional[torch.dtype] = None):
-        """``dtype`` is the compute dtype (default: the storage dtype)."""
+    def forward(self, pixel_values, output_hidden_state: bool = False,
+                dtype: Optional[torch.dtype] = None):
+        """``dtype`` is the compute dtype (default: the storage dtype).
+        Returns ``image_embeds``, or ``(image_embeds, penultimate)``."""
         cfg = self.config
         dtype = dtype or self.class_embedding.dtype
         patches = self.patch_embedding(pixel_values.to(dtype))
@@ -139,6 +143,10 @@ class CLIPVisionEncoder(nn.Module):
         cls = self.class_embedding.to(dtype).expand(b, 1, cfg.hidden_size)
         x = torch.cat([cls, patches], dim=1) + self.position_embedding[None].to(dtype)
         x = self.pre_layrnorm(x)
+        penultimate = None
         for i in range(cfg.num_hidden_layers):
+            if i == cfg.num_hidden_layers - 1:
+                penultimate = x
             x = getattr(self, f"layers_{i}")(x)
-        return self.visual_projection(self.post_layernorm(x[:, 0]))
+        image_embeds = self.visual_projection(self.post_layernorm(x[:, 0]))
+        return (image_embeds, penultimate) if output_hidden_state else image_embeds

@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -174,3 +175,54 @@ class AutoencoderKL(nn.Module):
 
     def forward(self, x, noise=None):
         return self.decode(self.encode(x, noise))
+
+
+def decode_sliced(decode, z: torch.Tensor, slice_size: int = 1) -> torch.Tensor:
+    """Decode (N, h, w, c) latents ``slice_size`` frames at a time with
+    ``decode`` (the JAX ``decode_sliced``, a ``lax.map`` there): peak memory
+    bounded by the slice.  Each slice is one decoder call, so the int8
+    decoder's per-tensor activation scales are per slice."""
+    n = z.shape[0]
+    if n % slice_size != 0:
+        raise ValueError(f"{n} frames not divisible by slice {slice_size}")
+    return torch.cat([decode(z[i:i + slice_size]) for i in range(0, n, slice_size)])
+
+
+def decode_tiled(decode, z: torch.Tensor, tile_latent_size: int = 64,
+                 overlap: float = 0.25) -> torch.Tensor:
+    """Spatially tiled decode with linear blending over the overlaps (the
+    JAX ``decode_tiled``, for 768 px and larger frames).  Latents no larger
+    than one tile decode whole; each tile is one decoder call (per-tile
+    int8 activation scales)."""
+    _, h, w, _ = z.shape
+    stride = int(tile_latent_size * (1 - overlap))
+    if h <= tile_latent_size and w <= tile_latent_size:
+        return decode(z)
+    edge = int(tile_latent_size * overlap)
+    rows = [[decode(z[:, i:i + tile_latent_size, j:j + tile_latent_size])
+             for j in range(0, max(w - edge, 1), stride)]
+            for i in range(0, max(h - edge, 1), stride)]
+    scale = rows[0][0].shape[1] // min(tile_latent_size, h)
+    blend = edge * scale
+
+    def mix(a, b, dim):
+        if blend == 0:
+            return torch.cat([a, b], dim=dim)
+        shape = [1, 1, 1, 1]
+        shape[dim] = blend
+        alpha = torch.from_numpy(np.linspace(0, 1, blend, dtype=np.float32)).reshape(shape)
+        alpha = alpha.to(a.device, a.dtype)
+        mixed = a.narrow(dim, a.shape[dim] - blend, blend) * (1 - alpha) + b.narrow(dim, 0, blend) * alpha
+        return torch.cat([a.narrow(dim, 0, a.shape[dim] - blend), mixed,
+                          b.narrow(dim, blend, b.shape[dim] - blend)], dim=dim)
+
+    row_images = []
+    for row in rows:
+        acc = row[0]
+        for tile in row[1:]:
+            acc = mix(acc, tile, 2)
+        row_images.append(acc)
+    image = row_images[0]
+    for r in row_images[1:]:
+        image = mix(image, r, 1)
+    return image

@@ -45,9 +45,13 @@ def parse_args(argv=None):
                    help="serving-mode int8 convs (UNet 3x3s + VAE decoder); --no-int8_conv "
                         "restores exact convs")
     p.add_argument("--encoder_cache", type=int, default=1, choices=(1, 2),
-                   help="2 = the encoder-propagation approximation: not ported yet, refused")
+                   help="2 = opt-in: every second denoise step reuses the previous step's UNet "
+                        "down-path features (encoder propagation, arXiv:2312.09608), a "
+                        "content-level approximation; 1 (off) by default")
     p.add_argument("--cfg_cutoff", type=float, default=1.0,
-                   help="leading fraction of steps with full CFG; below 1.0 not ported yet, refused")
+                   help="opt-in adaptive guidance: the leading fraction of denoise steps that run "
+                        "full CFG, the rest the conditional branch only; 1.0 (off) by default; "
+                        "not composable with --encoder_cache 2")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; 'cpu' runs on the CPU)")
     return p.parse_args(argv)

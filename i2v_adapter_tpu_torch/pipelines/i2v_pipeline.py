@@ -10,18 +10,21 @@ Counterpart of the JAX ``I2VAdapterPipeline``:
      clamped to the condition every step
   5. final clamp and VAE decode of all frames
 
-``_build_parts`` returns the same three functions as the JAX package's
-(prep, step, decode); ``__call__`` drives them eagerly on the device, one
-step at a time (the JAX package's ``dispatch='stepwise'``).
+``_build_parts`` returns the same functions as the JAX package's (prep,
+step, decode, and the encoder-cache step pair and the cond-only step of the
+two opt-in serving approximations); ``__call__`` drives them eagerly on the
+device, one step at a time (the JAX package's ``dispatch='stepwise'``).
+Clips longer than the motion modules' cap are denoised in anchored
+temporal windows (``pipelines.tiling``), the UNet can run the CFG-doubled
+batch in chunks (``unet_chunk``), and the decode can be sliced or tiled.
 ``from_pretrained`` assembles the pipeline from a diffusers-layout
 checkpoint directory through the key maps of ``utils.convert``.
 
 The serving default, ``PipelineConfig.int8_conv=True``, runs the UNet's
 resnet / down / upsample 3x3 convs and the VAE decoder's convs in int8
 (``ops.int8``); ``enable_int8_conv(False)`` restores exact convs on the
-same weights.  Not ported yet (ROADMAP): meshes, ``dispatch='scan'``,
-``encoder_cache`` and ``cfg_cutoff`` (refused unless off), temporal tiling,
-``unet_chunk``, sliced/tiled decode.
+same weights.  Not ported yet (ROADMAP): meshes, ``dispatch='scan'``, LoRA
+and textual inversion.
 """
 
 from __future__ import annotations
@@ -43,7 +46,10 @@ from i2v_adapter_tpu_torch.models import (
     CLIPVisionEncoder,
     VideoUNet,
 )
+from i2v_adapter_tpu_torch.models.vae import decode_sliced, decode_tiled
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
+from i2v_adapter_tpu_torch.ops.freeu import FreeUParams
+from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_call
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
 from i2v_adapter_tpu_torch.utils import convert
 from i2v_adapter_tpu_torch.utils import image as image_utils
@@ -51,16 +57,27 @@ from i2v_adapter_tpu_torch.utils.convert import load_flax_params
 from i2v_adapter_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 
-def _refuse_unported(encoder_cache, cfg_cutoff) -> None:
-    """Refuse the serving approximations that are not ported yet: any
-    ``encoder_cache`` but 1 and any ``cfg_cutoff`` but 1.0 (both off)."""
-    unported = []
-    if encoder_cache != 1:
-        unported.append(f"encoder_cache={encoder_cache} (only 1, off)")
-    if cfg_cutoff != 1.0:
-        unported.append(f"cfg_cutoff={cfg_cutoff} (only 1.0, off)")
-    if unported:
-        raise NotImplementedError("not ported yet (ROADMAP: serving extras): " + "; ".join(unported))
+def _encoder_cache_elems_per_eval(ucfg, lh: int, lw: int) -> int:
+    """Elements of one frame-evaluation's ``(x, skips)`` encoder cache (the
+    down path's conv_in skip, per-layer and downsample skips and its
+    output), which sizes ``encoder_cache=2``'s footprint before a call."""
+    h, w = lh, lw
+    n = len(ucfg.block_out_channels)
+    elems = h * w * ucfg.block_out_channels[0]  # conv_in skip
+    for i, ch in enumerate(ucfg.block_out_channels):
+        elems += ucfg.layers_per_block * h * w * ch
+        if i < n - 1:
+            h, w = -(-h // 2), -(-w // 2)
+            elems += h * w * ch  # downsample skip
+    elems += h * w * ucfg.block_out_channels[-1]  # down-path output x
+    return elems
+
+
+def cfg_steps(cfg_cutoff: float, n_steps: int) -> int:
+    """The number of leading CFG steps under ``cfg_cutoff`` (the rest run the
+    conditional half only): ``round(cutoff * steps)``, Python's half to even,
+    as the JAX sampler counts them."""
+    return n_steps if cfg_cutoff >= 1.0 else int(round(cfg_cutoff * n_steps))
 
 
 class I2VAdapterPipeline:
@@ -78,7 +95,6 @@ class I2VAdapterPipeline:
         pipeline_config: PipelineConfig = PipelineConfig(),
         device: DeviceLike = None,
     ):
-        _refuse_unported(pipeline_config.encoder_cache, pipeline_config.cfg_cutoff)
         if pipeline_config.int8_conv:
             # serving default: int8 UNet / VAE-decoder convs on the same weights
             model_config = model_config.replace(
@@ -120,8 +136,10 @@ class I2VAdapterPipeline:
         folders ``motion_adapter/``, ``i2v_adapter/`` and ``ip_adapter/``
         (the first ``.safetensors`` of a folder, else its first ``.bin``).
         Without an I2V-adapter checkpoint the adapter is the zero-init no-op.
-        The IP-Adapter's head variant is read from its keys; the plus and
-        full_face heads are refused by the UNet (not ported yet).
+        The IP-Adapter's head variant (standard, plus or full_face) and its
+        geometry are read from its keys; a plus or full_face head whose
+        input width is not the image encoder's hidden size is refused with
+        ``ValueError`` before the UNet is read.
 
         Each model is converted, loaded into its module on ``device`` and
         cast to the pipeline's dtype before the next file is read, so the
@@ -151,7 +169,12 @@ class I2VAdapterPipeline:
         if ip_sd is not None and model_config.unet.use_ip_adapter:
             model_config = model_config.replace(
                 unet=model_config.unet.replace(**convert.ip_config_updates(ip_sd)))
-        unet = VideoUNet(model_config.unet, device=device)  # refuses an unported IP head first
+            ucfg, hidden = model_config.unet, model_config.image_encoder.hidden_size
+            if ucfg.ip_variant != "standard" and ucfg.ip_hidden_dim != hidden:
+                raise ValueError(
+                    f"the IP-Adapter {ucfg.ip_variant} head reads {ucfg.ip_hidden_dim}-wide hidden "
+                    f"states, the image encoder gives {hidden}")
+        unet = VideoUNet(model_config.unet, device=device)
         tree = convert.convert_unet(
             load("unet", required=True), model_config.unet, load("motion_adapter", motion_adapter_path),
             load("i2v_adapter", i2v_adapter_path), ip_sd)
@@ -180,8 +203,11 @@ class I2VAdapterPipeline:
     def _module(self, value, cls, cfg) -> nn.Module:
         if not isinstance(value, nn.Module):
             value = load_flax_params(cls(cfg, device=self.device), value)
-        elif hasattr(value, "set_int8"):
-            value.set_int8(cfg.int8_conv if cls is VideoUNet else cfg.int8_decode)
+        elif cls is VideoUNet:
+            value.set_int8(cfg.int8_conv)
+            value.set_freeu(cfg.freeu)
+        elif cls is AutoencoderKL:
+            value.set_int8(cfg.int8_decode)
         return value.to(self.device, self.dtype).eval()
 
     def enable_int8_conv(self, enabled: bool = True) -> None:
@@ -197,8 +223,18 @@ class I2VAdapterPipeline:
         self.unet.set_int8(enabled)
         self.vae.set_int8(enabled)
 
+    def enable_freeu(self, s1: float = 0.9, s2: float = 0.2, b1: float = 1.2, b2: float = 1.4) -> None:
+        """FreeU skip re-weighting on the UNet's up path (``VideoUNetConfig.
+        freeu``); the weights are unchanged, so nothing is reloaded."""
+        self.config = self.config.replace(unet=self.config.unet.replace(freeu=(s1, s2, b1, b2)))
+        self.unet.set_freeu(FreeUParams(s1, s2, b1, b2))
+
+    def disable_freeu(self) -> None:
+        self.config = self.config.replace(unet=self.config.unet.replace(freeu=None))
+        self.unet.set_freeu(None)
+
     # ------------------------------------------------------------------
-    # the three parts
+    # the parts
     # ------------------------------------------------------------------
 
     def _build_parts(
@@ -212,18 +248,34 @@ class I2VAdapterPipeline:
         guidance_scale: float,
         use_cfg: bool,
         has_condition: bool,
+        decode_slice: int = 0,
+        vae_tiling: bool = False,
+        unet_chunk: int = 1,
     ):
-        """(prep_fn, step_fn, decode_fn, timesteps, prev_timesteps).
+        """(prep_fn, step_fn, decode_fn, timesteps, prev_timesteps,
+        (step_full_fn, step_cached_fn, step_cond_fn)), as the JAX package's.
 
         ``prep_fn(text_ids, cond_image, clip_image, generator, ...)
             -> (latents, consts)`` with consts = (cond_latents, text_states,
             image_embeds); the posterior noise, the prior's mask draw and
-            noise come from ``generator`` unless passed in.
+            noise come from ``generator`` unless passed in; without a
+            condition image ``init_latents`` (when given) are the start.
         ``step_fn(consts, latents, t, t_prev, generator=None, *,
             eta_noise=None) -> latents``: first-frame clamp, CFG-doubled
             UNet, guidance, DDIM update (with ``eta > 0`` the noise is
             ``eta_noise`` when given, else drawn from the generator).
-        ``decode_fn(consts, latents) -> (B, F, H, W, 3)`` float video."""
+        ``step_full_fn`` is ``step_fn`` that also returns the UNet's
+        down-path features, ``step_cached_fn(consts, latents, t, t_prev,
+        caches, ...)`` reuses them at the next timestep (``encoder_cache=2``),
+        and ``step_cond_fn`` runs the conditional half only, without
+        guidance (``cfg_cutoff``).
+        ``decode_fn(consts, latents) -> (B, F, H, W, 3)`` float video.
+
+        Every UNet evaluation runs the CFG-doubled batch in ``unet_chunk``
+        chunks of clips when that divides it (the encoder caches are kept
+        per chunk), and clips longer than ``motion_max_seq_length`` in
+        anchored temporal windows (caches per window).  ``vae_tiling`` /
+        ``decode_slice`` select the tiled or sliced decode."""
         cfg, pcfg = self.config, self.pipe_config
         dev, dtype, schedule = self.device, self.dtype, self.schedule
         scale = cfg.vae.scaling_factor
@@ -234,17 +286,32 @@ class I2VAdapterPipeline:
             cfg.scheduler, num_inference_steps, strength if has_condition else 1.0
         )
         prior_shape = (batch, f, lh, lw, cfg.unet.in_channels)
+        motion_cap = cfg.unet.motion_max_seq_length
+        use_tiling = num_frames > motion_cap
+        # anchored windows prepend the first frame: leave room under the cap
+        window = min(pcfg.temporal_window, motion_cap - 1)
+        stride = max(1, min(pcfg.temporal_stride, window - 1))
 
         def prep_fn(text_ids, cond_image, clip_image, generator=None, *,
-                    posterior_noise=None, mask_uniform=None, prior_noise=None):
+                    posterior_noise=None, mask_uniform=None, prior_noise=None, init_latents=None):
             text_states = self.text_encoder(torch.as_tensor(text_ids, device=dev))
             image_embeds = None
             if cfg.unet.use_ip_adapter:
-                image_embeds = self.image_encoder(torch.as_tensor(clip_image, device=dev))
+                clip = torch.as_tensor(clip_image, device=dev)
+                if cfg.unet.ip_variant == "standard":
+                    image_embeds = self.image_encoder(clip)
+                    uncond = torch.zeros_like(image_embeds)
+                else:  # plus / full_face read the penultimate hidden states;
+                    # the unconditional branch encodes a zero image
+                    image_embeds = self.image_encoder(clip, output_hidden_state=True)[1]
+                    uncond = self.image_encoder(torch.zeros_like(clip), output_hidden_state=True)[1]
                 if use_cfg:
-                    image_embeds = torch.cat([torch.zeros_like(image_embeds), image_embeds])
+                    image_embeds = torch.cat([uncond, image_embeds])
             if not has_condition:
-                latents = torch.randn(prior_shape, generator=generator, device=dev)
+                if init_latents is not None:
+                    latents = torch.as_tensor(init_latents, device=dev).float()
+                else:
+                    latents = torch.randn(prior_shape, generator=generator, device=dev)
                 return latents, (None, text_states, image_embeds)
             cond = torch.as_tensor(cond_image, device=dev).to(dtype)
             if posterior_noise is None and generator is None:
@@ -265,17 +332,62 @@ class I2VAdapterPipeline:
             )
             return latents, (cond_latents, text_states, image_embeds)
 
-        def step_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
-            cond_latents, text_states, image_embeds = consts
+        def unet_eval(x, t, text_states, image_embeds, **kw):
+            return self.unet(
+                x.to(dtype), torch.full((x.shape[0],), float(t), device=dev), text_states, image_embeds,
+                enable_cross_frame_attn=has_condition, **kw,
+            )
+
+        def chunks(n):
+            per = n // unet_chunk if unet_chunk > 1 and n % unet_chunk == 0 else n
+            return [slice(i, i + per) for i in range(0, n, per)]
+
+        def rows(a, sl):
+            return None if a is None else a[sl]
+
+        # one UNet evaluation of a (possibly CFG-doubled) batch, chunked
+        def unet_call(x, t, text, img):
+            return torch.cat([unet_eval(x[sl], t, rows(text, sl), rows(img, sl)).float()
+                              for sl in chunks(x.shape[0])])
+
+        def unet_full(x, t, text, img):
+            outs = [unet_eval(x[sl], t, rows(text, sl), rows(img, sl), return_encoder=True)
+                    for sl in chunks(x.shape[0])]
+            return torch.cat([o.float() for o, _ in outs]), [enc for _, enc in outs]
+
+        def unet_cached(x, t, text, img, caches):
+            return torch.cat([unet_eval(x[sl], t, rows(text, sl), rows(img, sl), cached_encoder=enc).float()
+                              for sl, enc in zip(chunks(x.shape[0]), caches)])
+
+        # the same, over the temporal windows of a clip past the motion cap
+        def evaluate(x, t, text, img):
+            if use_tiling:
+                return tiled_unet_call(lambda xw, anchored: unet_call(xw, t, text, img), x, window, stride)
+            return unet_call(x, t, text, img)
+
+        def evaluate_full(x, t, text, img):
+            if use_tiling:
+                return tiled_unet_call(lambda xw, anchored, cache: unet_full(xw, t, text, img), x,
+                                       window, stride, collect_caches=True)
+            return unet_full(x, t, text, img)
+
+        def evaluate_cached(x, t, text, img, caches):
+            if use_tiling:
+                return tiled_unet_call(lambda xw, anchored, cache: unet_cached(xw, t, text, img, cache), x,
+                                       window, stride, caches=caches)
+            return unet_cached(x, t, text, img, caches)
+
+        def clamp(latents, consts):
             if has_condition:
                 latents = latents.clone()
-                latents[:, 0] = cond_latents.to(latents.dtype)
-            model_in = torch.cat([latents, latents]) if use_cfg else latents
-            noise_pred = self.unet(
-                model_in.to(dtype), torch.full((model_in.shape[0],), float(t), device=dev),
-                text_states, image_embeds, enable_cross_frame_attn=has_condition,
-            ).float()
-            if use_cfg:
+                latents[:, 0] = consts[0].to(latents.dtype)
+            return latents
+
+        def cfg_input(latents):
+            return torch.cat([latents, latents]) if use_cfg else latents
+
+        def update(noise_pred, latents, t, tp, generator, eta_noise, guided=use_cfg):
+            if guided:
                 uncond, text = noise_pred.chunk(2)
                 noise_pred = uncond + guidance_scale * (text - uncond)
             if pcfg.eta <= 0.0:
@@ -287,24 +399,164 @@ class I2VAdapterPipeline:
                 torch.full((batch,), int(tp)), latents, eta=pcfg.eta, noise=eta_noise,
             )
 
+        def step_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
+            latents = clamp(latents, consts)
+            noise_pred = evaluate(cfg_input(latents), t, consts[1], consts[2])
+            return update(noise_pred, latents, t, tp, generator, eta_noise)
+
+        def step_full_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
+            latents = clamp(latents, consts)
+            noise_pred, caches = evaluate_full(cfg_input(latents), t, consts[1], consts[2])
+            return update(noise_pred, latents, t, tp, generator, eta_noise), caches
+
+        def step_cached_fn(consts, latents, t, tp, caches, generator=None, *, eta_noise=None):
+            latents = clamp(latents, consts)
+            noise_pred = evaluate_cached(cfg_input(latents), t, consts[1], consts[2], caches)
+            return update(noise_pred, latents, t, tp, generator, eta_noise)
+
+        def step_cond_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
+            _, text_states, image_embeds = consts
+            if use_cfg:  # the consts are [uncond; cond] along the batch
+                text_states = text_states[batch:]
+                image_embeds = rows(image_embeds, slice(batch, None))
+            latents = clamp(latents, consts)
+            noise_pred = evaluate(latents, t, text_states, image_embeds)
+            return update(noise_pred, latents, t, tp, generator, eta_noise, guided=False)
+
         def decode_fn(consts, latents):
-            if has_condition:
-                latents = latents.clone()
-                latents[:, 0] = consts[0].to(latents.dtype)
-            flat = latents.reshape(batch * f, lh, lw, cfg.unet.in_channels)
-            video = self.vae.decode((flat / scale).to(dtype))
+            latents = clamp(latents, consts)
+            flat = (latents.reshape(batch * f, lh, lw, cfg.unet.in_channels) / scale).to(dtype)
+            if vae_tiling:
+                video = decode_tiled(self.vae.decode, flat)
+            elif decode_slice <= 0 or decode_slice >= batch * f:
+                video = self.vae.decode(flat)
+            else:
+                video = decode_sliced(self.vae.decode, flat, decode_slice)
             return video.reshape(batch, f, height, width, cfg.vae.out_channels).float()
 
-        return prep_fn, step_fn, decode_fn, ts, prev
+        return prep_fn, step_fn, decode_fn, ts, prev, (step_full_fn, step_cached_fn, step_cond_fn)
 
     # ------------------------------------------------------------------
     # user entry point
     # ------------------------------------------------------------------
 
+    # unet_chunk=0 chunks the UNet's batch in two once the frame-evaluations
+    # x latent tokens of a step reach this.  Kept as the JAX package's rule,
+    # not sized for this card: under int8 each chunk takes its own
+    # activation scale, so the rule decides which clip a request gives, and
+    # one request gives the same clip on both packages.
+    UNET_CHUNK_AUTO_EVAL_TOKENS: int = 256 * 4096
+
+    # The card's memory budgets, from chip_smoke.py's serve_heads line (its
+    # "memory" record) on "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
+    # --query-gpu=name,power.limit), serving default, bf16: 85.0 GB on the
+    # card, 4.49 GB of weights (I2VModelConfig()), one 512 px UNet
+    # evaluation 89.4 MB per frame-evaluation (linear from 32 to 576, no
+    # fixed part), one decoded 512 px frame 1.21 GB (linear from 8 to 48).
+    # 90 % of the card is planned for (the CUDA context, the allocator's
+    # fragmentation and the library workspaces take the rest); three
+    # quarters of what the weights leave go to one evaluation (604
+    # frame-evaluations at 512 px; 576 kept), the last quarter to
+    # encoder_cache=2's features (18 GB; 16 GB kept); the decode, which
+    # runs alone, gets all of it (59 frames at 512 px; 56 kept).
+    #
+    # The single-card envelope: frame-evaluations x latent tokens that one
+    # UNet evaluation may hold at once.
+    MAX_EVAL_TOKENS: int = 576 * 4096
+
+    # encoder_cache=2 keeps every chunk's and window's down-path features
+    # alive across the step pair, on top of the weights and the working set
+    # of one evaluation (a 16-frame CFG step at 512 px holds 0.43 GB).
+    MAX_ENC_CACHE_BYTES: int = 16_000_000_000
+
+    # The VAE decode's envelope: frames per decoder call x latent tokens per
+    # frame (a tile's under vae_tiling).  The decoder's working set grows
+    # with the frames it decodes at once; the UNet's is freed by then.
+    MAX_DECODE_TOKENS: int = 56 * 4096
+
+    # the card these budgets were measured on (named in their errors)
+    MEMORY_BUDGET_CARD: str = "NVIDIA H100 80GB HBM3"
+
+    def _denoise(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None,
+                 callback=None, callback_steps: int = 1):
+        """The denoise loop over ``parts`` (``_build_parts``' result), as the
+        JAX stepwise sampler drives its parts: with ``encoder_cache=2`` pairs
+        of a full and a cached step, an odd trailing step exact; otherwise
+        ``n_cfg`` CFG steps, then cond-only steps.  Each step's synchronised
+        time is appended to ``last_timings["step_ms"]``; ``callback(i, t,
+        latents)`` runs after every ``callback_steps``-th step."""
+        _, step_fn, _, ts, prev, (step_full, step_cached, step_cond) = parts
+        n_pairs = len(ts) - len(ts) % 2 if encoder_cache > 1 else 0
+        caches = None
+        t1 = self._sync()
+        for i, (t, tp) in enumerate(zip(ts, prev)):
+            if i < n_pairs and i % 2 == 0:
+                latents, caches = step_full(consts, latents, t, tp, generator=generator)
+            elif i < n_pairs:
+                latents, caches = step_cached(consts, latents, t, tp, caches, generator=generator), None
+            elif i < n_cfg:
+                latents = step_fn(consts, latents, t, tp, generator=generator)
+            else:
+                latents = step_cond(consts, latents, t, tp, generator=generator)
+            t2 = self._sync()
+            self.last_timings.setdefault("step_ms", []).append((t2 - t1) * 1e3)
+            if callback is not None and i % callback_steps == 0:
+                callback(i, int(t), latents)
+            t1 = self._sync()
+        return latents
+
     def _sync(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
+
+    def _check_memory_envelope(self, evals: int, height: int, width: int, batch: int) -> None:
+        """Refuse a request whose UNet working set exceeds the card's measured
+        envelope before anything runs, instead of running the card out of
+        memory."""
+        sf = self.config.vae.spatial_scale_factor
+        tokens = (height // sf) * (width // sf)
+        if evals * tokens > self.MAX_EVAL_TOKENS:
+            max_batch = max(1, self.MAX_EVAL_TOKENS // (tokens * (evals // batch)))
+            raise ValueError(
+                f"request of {evals} UNet frame-evals x {tokens} latent tokens exceeds the "
+                f"single-card memory envelope ({self.MAX_EVAL_TOKENS} eval-tokens, measured on an "
+                f"{self.MEMORY_BUDGET_CARD}).  Split the request into batches of <= {max_batch} "
+                f"clip(s) at this resolution, lower the resolution, or pass memory_unsafe=True "
+                f"on a larger device.")
+
+    def _check_decode_envelope(self, frames: int, tokens: int) -> None:
+        """Refuse a request whose decoder calls would each decode more frame
+        x latent tokens than the card's measured decode envelope."""
+        if frames * tokens > self.MAX_DECODE_TOKENS:
+            raise ValueError(
+                f"decoding {frames} frames x {tokens} latent tokens at once exceeds the single-card "
+                f"decode envelope ({self.MAX_DECODE_TOKENS} frame-tokens, measured on an "
+                f"{self.MEMORY_BUDGET_CARD}).  Pass decode_slice <= "
+                f"{max(1, self.MAX_DECODE_TOKENS // tokens)} (frames per decoder call), "
+                f"vae_tiling=True, or memory_unsafe=True on a larger device.")
+
+    def _check_encoder_cache_budget(self, num_frames: int, height: int, width: int, batch: int,
+                                    use_cfg: bool, window: Optional[int]) -> None:
+        """Refuse an ``encoder_cache=2`` request whose cached down-path
+        features (every window's and chunk's, alive across the step pair)
+        exceed ``MAX_ENC_CACHE_BYTES``."""
+        sf = self.config.vae.spatial_scale_factor
+        if window is not None:
+            stride = max(1, min(self.pipe_config.temporal_stride, window - 1))
+            frames = sum((e - s) + (1 if s > 0 else 0) for s, e in temporal_windows(num_frames, window, stride))
+        else:
+            frames = num_frames
+        cached_evals = frames * batch * (2 if use_cfg else 1)
+        cache_bytes = (cached_evals * _encoder_cache_elems_per_eval(self.config.unet, height // sf, width // sf)
+                       * (2 if self.pipe_config.dtype == "bfloat16" else 4))
+        if cache_bytes > self.MAX_ENC_CACHE_BYTES:
+            raise ValueError(
+                f"encoder_cache=2 would hold ~{cache_bytes / 1e9:.1f} GB of down-path features "
+                f"across the step pair ({cached_evals} cached frame-evals), over the "
+                f"{self.MAX_ENC_CACHE_BYTES / 1e9:.1f} GB cache budget measured on an "
+                f"{self.MEMORY_BUDGET_CARD}.  Use a smaller batch or resolution, disable "
+                f"encoder_cache, or pass memory_unsafe=True on a larger device.")
 
     @torch.inference_mode()
     def __call__(
@@ -319,11 +571,19 @@ class I2VAdapterPipeline:
         num_inference_steps: Optional[int] = None,
         guidance_scale: Optional[float] = None,
         frame_similarity_sample_ratio: Optional[float] = None,
+        num_videos_per_prompt: int = 1,
+        latents=None,
         seed: int = 0,
         output_type: str = "np",
+        decode_slice: int = 0,
+        vae_tiling: bool = False,
+        unet_chunk: int = 0,
+        memory_unsafe: bool = False,
         dispatch: str = "auto",
         encoder_cache: Optional[int] = None,
         cfg_cutoff: Optional[float] = None,
+        callback=None,
+        callback_steps: int = 1,
     ):
         """Generate clips: (B, F, H, W, 3) uint8 (``output_type='np'``),
         float32 in [-1, 1] (``'pt'`` or ``'float'``), or the final latents
@@ -332,21 +592,48 @@ class I2VAdapterPipeline:
         Phase times of the call (ms, synchronised on the GPU) are left in
         ``self.last_timings``; ``'latent'`` has no ``decode_ms``.
 
-        ``dispatch``: ``'auto'`` and ``'stepwise'`` run the eager loop, one
-        device pass per denoise step (the JAX package's stepwise dispatch);
-        ``'scan'``, the whole clip as one fused dispatch, is not ported yet
-        (CUDA-graph capture) and raises ``NotImplementedError``.
-        ``encoder_cache`` / ``cfg_cutoff`` (None: the pipeline config's):
-        values outside the reference's domain raise ``ValueError``, as
-        there; any value but off (1, 1.0) raises ``NotImplementedError``."""
+        The arguments are the JAX ``__call__``'s:
+
+        * ``num_videos_per_prompt``: each prompt and its condition and IP
+          images repeat N times, interleaved.
+        * ``latents``: initial latents (B*N, F, H/8, W/8, 4); a condition
+          image's similarity prior replaces them, so they only shape the
+          no-condition path.
+        * ``decode_slice`` (frames per decoder call; 0 = all, auto 32 past 64
+          frames, 2 for large frames), ``vae_tiling`` (spatially tiled
+          decode), ``unet_chunk`` (clip chunks per UNet evaluation; 0 = the
+          reference's auto rule).
+        * ``memory_unsafe=True`` skips the card's memory envelopes (the UNet's
+          and the decode's) and the encoder-cache budget.
+        * ``dispatch``: ``'auto'`` and ``'stepwise'`` run the eager loop, one
+          device pass per denoise step (the JAX package's stepwise
+          dispatch); ``'scan'``, the whole clip as one fused dispatch, is
+          not ported yet (CUDA-graph capture) and raises
+          ``NotImplementedError``.
+        * ``encoder_cache=2``: every second denoise step reuses the previous
+          step's UNet down-path features (pairs of a full and a cached step;
+          an odd trailing step runs full).  ``cfg_cutoff`` in [0, 1]: the
+          first ``round(cutoff * steps)`` steps (half to even) run CFG, the
+          rest the conditional half only.  Both are opt-in approximations
+          (None: the pipeline config's) and are not composed.
+        * ``callback(i, t, latents)`` after every ``callback_steps``-th
+          denoise step, with the latents on the device."""
         if output_type not in ("np", "pt", "float", "latent"):
             raise ValueError(f"output_type must be 'np', 'pt', 'float' or 'latent', got {output_type!r}")
         if dispatch not in ("auto", "scan", "stepwise"):
             raise ValueError(f"dispatch must be auto/scan/stepwise, got {dispatch!r}")
+        if callback is not None:
+            if callback_steps < 1:
+                raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
+            if dispatch == "scan":
+                raise ValueError("per-step callback requires stepwise dispatch (the fused scan runs "
+                                 "the whole clip as one device program); pass dispatch='stepwise' or 'auto'")
         if dispatch == "scan":
             raise NotImplementedError(
                 "dispatch='scan' (the whole clip as one fused dispatch) is not ported yet "
-                "(ROADMAP: serving extras, CUDA-graph capture); 'auto' and 'stepwise' run")
+                "(ROADMAP: CUDA-graph capture); 'auto' and 'stepwise' run")
+        if num_videos_per_prompt < 1:
+            raise ValueError(f"num_videos_per_prompt must be >= 1, got {num_videos_per_prompt}")
         pcfg = self.pipe_config
         encoder_cache = pcfg.encoder_cache if encoder_cache is None else encoder_cache
         cfg_cutoff = pcfg.cfg_cutoff if cfg_cutoff is None else cfg_cutoff
@@ -354,7 +641,6 @@ class I2VAdapterPipeline:
             raise ValueError(f"encoder_cache must be 1 (off) or 2, got {encoder_cache}")
         if not 0.0 <= cfg_cutoff <= 1.0:
             raise ValueError(f"cfg_cutoff must be in [0, 1], got {cfg_cutoff}")
-        _refuse_unported(encoder_cache, cfg_cutoff)
         num_frames = num_frames or pcfg.num_frames
         height = height or pcfg.height
         width = width or pcfg.width
@@ -364,23 +650,58 @@ class I2VAdapterPipeline:
             frame_similarity_sample_ratio if frame_similarity_sample_ratio is not None
             else pcfg.frame_similarity_sample_ratio
         )
-        if num_frames > self.config.unet.motion_max_seq_length:
-            raise NotImplementedError(
-                "clips longer than motion_max_seq_length need temporal tiling, "
-                "not ported yet (ROADMAP: serving extras)"
-            )
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        batch = len(prompts)
         use_cfg = guidance > 1.0
         has_condition = condition_image is not None
         if negative_prompt is None:
-            negatives = [""] * batch
+            negatives = [""] * len(prompts)
         elif isinstance(negative_prompt, str):
-            negatives = [negative_prompt] * batch
+            negatives = [negative_prompt] * len(prompts)
         else:
             negatives = list(negative_prompt)
-        text_ids = self.tokenizer(negatives + prompts if use_cfg else prompts, padding="max_length")
+        # interleaved ([p0, p0, p1, p1] for N = 2), as the reference repeats
+        n = num_videos_per_prompt
+        prompts = [p for p in prompts for _ in range(n)]
+        negatives = [p for p in negatives for _ in range(n)]
+        batch = len(prompts)
+        if not use_cfg:
+            cfg_cutoff = 1.0  # guidance already off: nothing to cut
+        if encoder_cache > 1 and cfg_cutoff < 1.0:
+            raise ValueError(
+                "cfg_cutoff and encoder_cache are separate content-level approximations and are "
+                "not composed (the turbo step pair would need cond-only full/cached variants); pick one")
 
+        evals = batch * num_frames * (2 if use_cfg else 1)
+        # temporal tiling holds one anchored window of frames at a time
+        motion_cap = self.config.unet.motion_max_seq_length
+        window = min(pcfg.temporal_window, motion_cap - 1) if num_frames > motion_cap else None
+        concurrent_evals = evals if window is None else batch * (window + 1) * (2 if use_cfg else 1)
+        sf = self.config.vae.spatial_scale_factor
+        lh, lw = height // sf, width // sf
+        tokens = lh * lw
+        if unet_chunk == 0:
+            unet_chunk = 2 if evals * tokens >= self.UNET_CHUNK_AUTO_EVAL_TOKENS else 1
+        if decode_slice == 0 and batch * num_frames > 64:
+            decode_slice = 32
+        if decode_slice == 0 and tokens > 4096 and batch * num_frames > 8:
+            decode_slice = 2
+        if not memory_unsafe:
+            self._check_memory_envelope(concurrent_evals, height, width, batch)
+            if encoder_cache > 1:
+                self._check_encoder_cache_budget(num_frames, height, width, batch, use_cfg, window)
+            if output_type != "latent":
+                frames = batch * num_frames
+                frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
+                # decode_tiled's tiles are at most 64 latents a side
+                self._check_decode_envelope(frames, min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
+        init_latents = None
+        if latents is not None and not has_condition:
+            lat_shape = (batch, num_frames, height // sf, width // sf, self.config.unet.in_channels)
+            init_latents = np.asarray(latents, dtype=np.float32)
+            if init_latents.shape != lat_shape:
+                raise ValueError(f"latents shape {init_latents.shape} != expected {lat_shape}")
+
+        text_ids = self.tokenizer(negatives + prompts if use_cfg else prompts, padding="max_length")
         if has_condition:
             cond = image_utils.preprocess_batch(condition_image, height, width)
             if cond.shape[0] != batch and batch % cond.shape[0] == 0:
@@ -397,20 +718,18 @@ class I2VAdapterPipeline:
         else:
             clip_img = np.zeros((batch, size, size, 3), dtype=np.float32)
 
-        prep_fn, step_fn, decode_fn, ts, prev = self._build_parts(
+        parts = self._build_parts(
             batch, num_frames, height, width, steps, float(strength), float(guidance),
-            use_cfg, has_condition,
+            use_cfg, has_condition, decode_slice, vae_tiling, unet_chunk,
         )
+        prep_fn, decode_fn, ts = parts[0], parts[2], parts[3]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         t0 = self._sync()
-        latents, consts = prep_fn(text_ids, cond, clip_img, gen)
+        latents, consts = prep_fn(text_ids, cond, clip_img, gen, init_latents=init_latents)
+        self.last_timings = {"prep_ms": (self._sync() - t0) * 1e3, "step_ms": []}
+        latents = self._denoise(parts, consts, latents, encoder_cache, cfg_steps(cfg_cutoff, len(ts)),
+                                gen, callback, callback_steps)
         t1 = self._sync()
-        self.last_timings = {"prep_ms": (t1 - t0) * 1e3, "step_ms": []}
-        for t, tp in zip(ts, prev):
-            latents = step_fn(consts, latents, t, tp, generator=gen)
-            t2 = self._sync()
-            self.last_timings["step_ms"].append((t2 - t1) * 1e3)
-            t1 = t2
         if output_type == "latent":
             if has_condition:
                 latents = latents.clone()

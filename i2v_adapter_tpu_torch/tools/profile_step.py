@@ -165,7 +165,7 @@ def profile_serving(dev, conv_impl: str, int8: bool = False) -> None:
     image = np.random.default_rng(6).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     pipe("a cat", condition_image=image, seed=0)  # warm-up: cuDNN plans, kernel builds
 
-    prep, step, decode, ts, prev = pipe._build_parts(
+    prep, step, decode, ts, prev, _ = pipe._build_parts(
         1, FRAMES, SIZE, SIZE, STEPS, pcfg.frame_similarity_sample_ratio,
         7.5, True, True,
     )

@@ -17,9 +17,10 @@ converts numpy state dicts and constructs its pipeline.
 * ``from_pretrained``: every module's state dict equal, bit for bit, to
   ``load_flax_params`` of the JAX ``from_pretrained`` tree (fp32 and bf16
   pipelines, with and without an adapter checkpoint; an fp16 directory
-  stored in the compute dtype), the same tokenizer ids and IP config; one
-  ``output_type='latent'`` call equal to the same call on a pipeline built
-  from the JAX tree; plus heads and missing weights refused.
+  stored in the compute dtype; plus and full_face IP checkpoints), the same
+  tokenizer ids and IP config; one ``output_type='latent'`` call equal to the
+  same call on a pipeline built from the JAX tree; a plus head wider than
+  the image encoder and missing weights refused.
 """
 
 import json
@@ -244,7 +245,13 @@ def ckpt(tmp_path_factory):
     synth.write_pretrained_dir(str(root / "sd"), np.random.default_rng(0))
     psynth.write_pretrained_dir(str(root / "half"), PCFG, dtype=np.float16, seed=4)
     adapter = psynth.write_adapter_task(str(root / "checkpoint"), "task", PCFG)
-    return {"dir": str(root / "sd"), "half": str(root / "half"), "adapter": adapter}
+    ips = {}
+    for i, variant in enumerate(("plus", "full_face")):  # the tiny plus head: 6 x 12, depth 2
+        ip_sd = psynth.make_ip_adapter_sd(psynth.Draw(30 + i), PCFG, variant, num_tokens=6, resampler_dim=12,
+                                          depth=2)
+        ips[variant] = str(root / f"ip-{variant}.bin")
+        psynth.save_ip_adapter(ip_sd, ips[variant])
+    return {"dir": str(root / "sd"), "half": str(root / "half"), "adapter": adapter, "ip": ips}
 
 
 PIPE_ARGS = dict(num_frames=2, height=32, width=32, num_inference_steps=2, blur_sigma=1.0)
@@ -252,19 +259,22 @@ PIPE_ARGS = dict(num_frames=2, height=32, width=32, num_inference_steps=2, blur_
 
 @pytest.mark.parametrize("dtype,adapter,directory", [
     ("float32", False, "dir"), ("float32", True, "dir"), ("bfloat16", False, "dir"),
-    ("bfloat16", True, "dir"), ("bfloat16", False, "half")])
+    ("bfloat16", True, "dir"), ("bfloat16", False, "half"), ("float32", True, "plus"),
+    ("bfloat16", False, "full_face")])
 def test_from_pretrained_matches_jax(ckpt, dtype, adapter, directory):
     """Bit for bit: each port module equals ``load_flax_params`` of the JAX
     tree in the pipeline's dtype.  The JAX package stores an fp32 leaf in
     bf16 under a bf16 pipeline and keeps an fp16 leaf in fp16; the port
     stores every leaf in the compute dtype, which for fp32 files is the same
-    rounding (the 'half' case holds the port's rule)."""
+    rounding (the 'half' case holds the port's rule).  'plus' and
+    'full_face' load the directory with such an IP-Adapter file."""
     path = ckpt["adapter"] if adapter else None
-    jpipe = JPipeline.from_pretrained(ckpt[directory], model_config=JCFG,
-                                      pipeline_config=JPipelineConfig(dtype=dtype), i2v_adapter_path=path)
-    pipe = I2VAdapterPipeline.from_pretrained(ckpt[directory], model_config=PCFG,
-                                              pipeline_config=PipelineConfig(dtype=dtype),
-                                              i2v_adapter_path=path, device="cpu")
+    root, ip = (ckpt["dir"], ckpt["ip"][directory]) if directory in ckpt["ip"] else (ckpt[directory], None)
+    jpipe = JPipeline.from_pretrained(root, model_config=JCFG, pipeline_config=JPipelineConfig(dtype=dtype),
+                                      i2v_adapter_path=path, ip_adapter_path=ip)
+    pipe = I2VAdapterPipeline.from_pretrained(root, model_config=PCFG, pipeline_config=PipelineConfig(dtype=dtype),
+                                              i2v_adapter_path=path, ip_adapter_path=ip, device="cpu")
+    assert pipe.config.unet.ip_variant == (directory if ip else "standard")
     torch_dtype = getattr(torch, dtype)
     for name, cls in MODULES.items():
         module = cls(getattr(pipe.config, name), device="cpu")
@@ -297,13 +307,15 @@ def test_from_pretrained_latents_equal_pipeline_from_jax_tree(ckpt):
 
 @pytest.mark.parametrize("case", ["plus_ip_head", "missing_vae"])
 def test_from_pretrained_refusals(ckpt, tmp_path, case):
-    """A plus IP-Adapter head is refused before the UNet is read; a
-    directory without a required model's weights names the folder."""
+    """A plus IP-Adapter head that reads hidden states of another width than
+    the image encoder's (24 against 16 here) is refused before the UNet is
+    read; a directory without a required model's weights names the
+    folder."""
     if case == "plus_ip_head":
         plus = str(tmp_path / "ip-plus.bin")
         ip = ip_state_dict("plus", np.random.default_rng(6))
         torch.save({p: {k: torch.from_numpy(v) for k, v in ip[p].items()} for p in ip}, plus)
-        with pytest.raises(NotImplementedError, match="ip_variant='plus'"):
+        with pytest.raises(ValueError, match="plus head reads 24-wide hidden states, the image encoder gives 16"):
             I2VAdapterPipeline.from_pretrained(ckpt["dir"], model_config=PCFG, ip_adapter_path=plus,
                                                device="cpu")
         return

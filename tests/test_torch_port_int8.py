@@ -295,7 +295,7 @@ def test_int8_serving_default_loop_matches_jax(monkeypatch, tmp_path):
     load_flax_params(pipe.unet, params["unet"])
     load_flax_params(pipe.vae, params["vae"])
     assert pipe.config.unet.int8_conv and pipe.config.vae.int8_decode
-    _, step, decode, pts, pprev = pipe._build_parts(b, f, size, size, steps, 1.0, 7.5, True, True)
+    _, step, decode, pts, pprev, _ = pipe._build_parts(b, f, size, size, steps, 1.0, 7.5, True, True)
     pconsts = tuple(T(c) for c in consts)
 
     def run():

@@ -59,9 +59,12 @@ def _flash_inputs(dev, bq, rep, n, h, d, dtype, seed, nk=None):
 
 
 # (kv_repeat, nq, nk, d): the serving and training head dims at both
-# kv_repeat values, and ragged token counts that no tile size divides
+# kv_repeat values, ragged token counts that no tile size divides, and the
+# full_face IP attention's 257 keys at every level (the mid block's 64
+# queries are half of the D = 160 query tile)
 FLASH_CASES = [(1, 1024, 1024, 80), (16, 577, 577, 40), (1, 256, 256, 160), (16, 256, 256, 160),
-               (16, 1024, 1024, 40), (1, 577, 130, 40), (16, 130, 577, 80), (2, 130, 130, 160)]
+               (16, 1024, 1024, 40), (1, 577, 130, 40), (16, 130, 577, 80), (2, 130, 130, 160),
+               (1, 4096, 257, 40), (1, 1024, 257, 80), (1, 256, 257, 160), (1, 64, 257, 160)]
 
 
 @pytest.mark.gpu
@@ -95,6 +98,19 @@ def test_flash_mma_kernel_matches_plain_on_card(cuda_device, rep, nq, nk, d, sta
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_anchored_window_matches_plain_on_card(cuda_device, dtype):
+    """The cross-frame attention of temporal tiling's anchored windows: 17
+    frames per clip, two clips (a CFG-doubled window), kv_repeat = 17."""
+    q, k, v = _flash_inputs(cuda_device, 34, 17, 1024, 8, 40, dtype, seed=17)
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, kv_repeat=17, static_max=64.0)
+    assert A.flash_attention.launches == before + 1
+    want = A._plain_attention(q, k, v, 17, 1 / math.sqrt(40), 64.0)
+    assert _relerr(got, want) < (TOL_FP32 if dtype == torch.float32 else TOL_BF16)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_refuses_unaligned_bf16(cuda_device):
     """bf16 rows the tensor-core kernel cannot read raise; nothing launches."""
     q = torch.randn(2, 256, 2, 36, device=cuda_device).to(torch.bfloat16)
@@ -110,10 +126,11 @@ def test_flash_kernel_refuses_unaligned_bf16(cuda_device):
 
 
 # (fq, f, s, c, strided q): 8 heads, so d = 40, 80, 160 at C = 320, 640,
-# 1280; F = 16 and 32, Fq < F, token counts no tile divides (1, 130, 577),
-# and q as a view of a wider buffer
+# 1280; F = 16 and 32, the anchored windows' 17, Fq < F, token counts no
+# tile divides (1, 130, 577), and q as a view of a wider buffer
 TEMPORAL_CASES = [
     (16, 16, 1024, 320, False), (16, 16, 1024, 640, False), (16, 16, 256, 1280, False),
+    (17, 17, 4096, 320, False), (17, 17, 1024, 640, False),
     (32, 32, 128, 640, False), (32, 32, 256, 1280, False), (8, 16, 576, 640, False),
     (16, 16, 1, 640, False), (16, 16, 130, 320, False), (16, 16, 577, 1280, False),
     (16, 16, 130, 640, True), (12, 20, 77, 640, True),

@@ -133,12 +133,20 @@ def test_video_unet_full_eval(unet_params, fast_gelu):
 
 
 def test_video_unet_refuses_unported_options():
-    for kw in (dict(ip_variant="plus"), dict(freeu=(0.9, 0.2, 1.2, 1.4))):
-        with pytest.raises(NotImplementedError):
-            VideoUNet(tiny_test_config().unet.replace(**kw), device=CPU)
+    """No UNet option is refused any more: FreeU builds with the same
+    parameters, the plus and full_face IP heads with their own head in place
+    of the standard one (their parity with JAX is in
+    tests/test_torch_port_extras.py)."""
+    plain = list(VideoUNet(tiny_test_config().unet, device=CPU).state_dict())
+    freeu = VideoUNet(tiny_test_config().unet.replace(freeu=(0.9, 0.2, 1.2, 1.4)), device=CPU)
+    assert list(freeu.state_dict()) == plain
+    body = [n for n in plain if not n.startswith("encoder_hid_proj.")]
+    for variant, leaf in (("plus", "encoder_hid_proj.layers_0_attn.to_kv.weight"),
+                          ("full_face", "encoder_hid_proj.proj_3.weight")):
+        names = list(VideoUNet(tiny_test_config().unet.replace(ip_variant=variant), device=CPU).state_dict())
+        assert [n for n in names if not n.startswith("encoder_hid_proj.")] == body and leaf in names
     # the fused-conv and int8 configurations are ported: they build, with the
     # same parameters
-    plain = list(VideoUNet(tiny_test_config().unet, device=CPU).state_dict())
     fused = VideoUNet(tiny_test_config().unet.replace(conv_impl="pallas"), device=CPU)
     assert list(fused.state_dict()) == plain
     assert all(m.conv_impl == "pallas" for m in fused.modules() if isinstance(m, ResnetBlock2D))

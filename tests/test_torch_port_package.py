@@ -29,6 +29,7 @@ from i2v_adapter_tpu_torch.ops import attention as A
 from i2v_adapter_tpu_torch.ops import profile_int8_dense as I8
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
+from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -145,12 +146,18 @@ def test_pipeline_refuses_int8_conv():
 @pytest.mark.parametrize("kwargs", [dict(encoder_cache=2), dict(cfg_cutoff=0.5)],
                          ids=["encoder_cache", "cfg_cutoff"])
 def test_pipeline_refuses_unported_serving_options(kwargs):
-    """The reference applies both (its __call__); until they are ported the
-    pipeline refuses them rather than sample exact full-CFG content."""
-    name = next(iter(kwargs))
-    with pytest.raises(NotImplementedError, match=name):
-        I2VAdapterPipeline(pconfig.tiny_test_config(), {}, None, pconfig.PipelineConfig(**kwargs),
-                           device="cpu")
+    """Both are ported and refused no more: set in the pipeline's config, the
+    approximation applies to every call (3 denoise steps: a full/cached pair
+    and a full step, or 2 CFG steps and a cond-only one) and a call can turn
+    it off; its parity with JAX is in tests/test_torch_port_extras.py."""
+    pc = pconfig.PipelineConfig(num_frames=2, height=32, width=32, num_inference_steps=4, blur_sigma=1.0,
+                                dtype="float32", **kwargs)
+    pipe = random_pipeline(pconfig.tiny_test_config(), pc, "cpu")
+    image = np.random.default_rng(2).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    on = pipe("a cat", condition_image=image, seed=1, output_type="latent")
+    off = pipe("a cat", condition_image=image, seed=1, output_type="latent",
+               **{name: type(value)(1) for name, value in kwargs.items()})
+    assert np.isfinite(on).all() and np.abs(on - off).max() > 0
 
 
 def test_wrappers_take_plain_path_on_cpu():

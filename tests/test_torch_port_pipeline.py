@@ -124,7 +124,7 @@ def test_denoise_and_decode_loop_matches_jax(setup, use_cfg, has_condition, eta)
                                                 "text_encoder": pipe.text_encoder,
                                                 "image_encoder": pipe.image_encoder},
                                   pipe.tokenizer, pipe.pipe_config.replace(eta=eta), device="cpu")
-    _, step, decode, pts, pprev = pipe._build_parts(B, F, size, size, STEPS, 1.0, guidance, use_cfg,
+    _, step, decode, pts, pprev, _ = pipe._build_parts(B, F, size, size, STEPS, 1.0, guidance, use_cfg,
                                                     has_condition)
     np.testing.assert_array_equal(pts, ts)
     pconsts = tuple(None if c is None else torch.tensor(np.asarray(c)) for c in consts)
@@ -152,7 +152,7 @@ def test_prep_matches_jax_encoders_and_prior(setup):
     mask_u = rng.uniform(size=lat_shape).astype(np.float32)
     prior_noise = rng.standard_normal(lat_shape).astype(np.float32)
 
-    prep, _, _, ts, _ = pipe._build_parts(B, F, size, size, 5, 0.9, GUIDANCE, True, True)
+    prep, _, _, ts, _, _ = pipe._build_parts(B, F, size, size, 5, 0.9, GUIDANCE, True, True)
     with torch.no_grad():
         latents, (cond_latents, text_states, image_embeds) = prep(
             text_ids, cond, clip_img, posterior_noise=torch.from_numpy(post_noise),

@@ -4,8 +4,8 @@ config on the CPU (2 frames, 32 px, 2 steps), mirroring
 ``tests/test_serve.py`` and ``tests/test_cli.py``.
 
 * the queue drains and isolates failures (a missing image, malformed JSON,
-  ``encoder_cache: 2``, ``dispatch: "scan"``), a ``dispatch: "stepwise"``
-  request runs, and outputs equal a direct call;
+  ``dispatch: "scan"``), ``encoder_cache: 2`` and ``dispatch: "stepwise"``
+  requests run, and outputs equal a direct call;
 * a request that runs out of device memory fails alone;
 * the per-request timeout fails a hanging request and recycles the worker;
 * the argparse surfaces equal the JAX package's (dests and defaults),
@@ -15,7 +15,9 @@ config on the CPU (2 frames, 32 px, 2 steps), mirroring
   writer produces the GIF;
 * ``__call__``: ``dispatch`` 'auto' / 'stepwise' run (equal), 'scan'
   refused; ``encoder_cache`` / ``cfg_cutoff`` off runs, the approximations
-  refused, values outside the reference's domain ValueError.
+  run (here one denoise step: ``encoder_cache=2``'s odd trailing step is the
+  exact one, ``cfg_cutoff=0.5`` rounds to no CFG step), values outside the
+  reference's domain ValueError.
 """
 
 import csv
@@ -83,7 +85,7 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
         "a_good": {"prompt": "a cat", "image": img, "seed": 3, "format": "npy"},
         "b_missing_image": {"prompt": "x", "image": str(tmp_path / "missing.png")},
         "c_malformed": "{not json",
-        "d_encoder_cache": {"prompt": "a cat", "image": img, "encoder_cache": 2},
+        "d_encoder_cache": {"prompt": "a cat", "image": img, "seed": 3, "encoder_cache": 2, "format": "npy"},
         "e_scan": {"prompt": "a cat", "image": img, "dispatch": "scan"},
         "f_stepwise": {"prompt": "a dog", "image": img, "seed": 4, "dispatch": "stepwise", "format": "npy"},
         "g_gif": {"prompt": "a dog", "image": img},
@@ -95,8 +97,9 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
     np.testing.assert_array_equal(video, pipe("a cat", condition_image=Image.open(img), seed=3))
     stepwise = np.load(os.path.join(out_dir, "f_stepwise.npy"))
     np.testing.assert_array_equal(stepwise, pipe("a dog", condition_image=Image.open(img), seed=4))
+    cached = np.load(os.path.join(out_dir, "d_encoder_cache.npy"))
+    np.testing.assert_array_equal(cached, pipe("a cat", condition_image=Image.open(img), seed=3, encoder_cache=2))
     for rid, error in (("b_missing_image", "FileNotFoundError"), ("c_malformed", "JSONDecodeError"),
-                       ("d_encoder_cache", "NotImplementedError: not ported yet"),
                        ("e_scan", "NotImplementedError: dispatch='scan'")):
         r = result(out_dir, rid)
         assert not r["ok"] and r["error"].startswith(error), (rid, r)
@@ -105,7 +108,20 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
         assert gif.n_frames == 2 and gif.size == (32, 32)
     assert sorted(os.listdir(req_dir)) == [
         "a_good.json.done", "b_missing_image.json.failed", "c_malformed.json.failed",
-        "d_encoder_cache.json.failed", "e_scan.json.failed", "f_stepwise.json.done", "g_gif.json.done"]
+        "d_encoder_cache.json.done", "e_scan.json.failed", "f_stepwise.json.done", "g_gif.json.done"]
+
+
+def test_serve_refuses_over_envelope_and_serves_on(setup, tmp_path):
+    """A request over the card's memory envelope fails with the envelope's
+    ValueError in its result JSON, before anything runs, and the next
+    request serves (the JAX ``tests/test_serve.py`` behaviour)."""
+    req_dir, out_dir = str(tmp_path / "requests"), str(tmp_path / "output")
+    queue(req_dir, {"a_huge": {"prompt": "x", "image": setup["image"], "height": 4096, "width": 4096},
+                    "b_next": {"prompt": "a cat", "image": setup["image"], "format": "npy"}})
+    assert serve.serve(setup["pipe"], req_dir, out_dir, max_requests=5) == 2
+    r = result(out_dir, "a_huge")
+    assert not r["ok"] and r["error"].startswith("ValueError: request of") and "memory envelope" in r["error"]
+    assert result(out_dir, "b_next")["ok"]
 
 
 class _OutOfMemoryOnce:
@@ -228,27 +244,34 @@ def test_cli_writes_gif_with_adapter_task(setup, tmp_path):
         assert gif.n_frames == 2 and gif.size == (32, 32)
 
 
+# (call arguments, what the call gives: the same latents as the default call,
+# other latents, or an error)
 CALL_CASES = {
-    "dispatch_auto": (dict(dispatch="auto"), None),
-    "dispatch_stepwise": (dict(dispatch="stepwise"), None),
+    "dispatch_auto": (dict(dispatch="auto"), "same"),
+    "dispatch_stepwise": (dict(dispatch="stepwise"), "same"),
     "dispatch_scan": (dict(dispatch="scan"), NotImplementedError),
     "dispatch_unknown": (dict(dispatch="fused"), ValueError),
-    "encoder_cache_off": (dict(encoder_cache=1), None),
-    "encoder_cache_2": (dict(encoder_cache=2), NotImplementedError),
+    "encoder_cache_off": (dict(encoder_cache=1), "same"),
+    "encoder_cache_2": (dict(encoder_cache=2), "same"),  # one step: the trailing full step
     "encoder_cache_3": (dict(encoder_cache=3), ValueError),
-    "cfg_cutoff_off": (dict(cfg_cutoff=1.0), None),
-    "cfg_cutoff_half": (dict(cfg_cutoff=0.5), NotImplementedError),
+    "cfg_cutoff_off": (dict(cfg_cutoff=1.0), "same"),
+    "cfg_cutoff_half": (dict(cfg_cutoff=0.5), "other"),  # round(0.5) = 0: cond-only
     "cfg_cutoff_out_of_range": (dict(cfg_cutoff=1.5), ValueError),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CALL_CASES))
 def test_call_serving_options(setup, case):
-    kwargs, error = CALL_CASES[case]
+    kwargs, expect = CALL_CASES[case]
     pipe, image = setup["pipe"], np.asarray(Image.open(setup["image"]))
     call = lambda **kw: pipe("a cat", condition_image=image, seed=5, output_type="latent", **kw)  # noqa: E731
-    if error is not None:
-        with pytest.raises(error):
+    if expect not in ("same", "other"):
+        with pytest.raises(expect):
             call(**kwargs)
         return
-    np.testing.assert_array_equal(call(**kwargs), call())
+    got, want = call(**kwargs), call()
+    assert len(pipe.last_timings["step_ms"]) == 1 and np.isfinite(got).all()
+    if expect == "same":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() > 0

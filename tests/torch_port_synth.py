@@ -147,15 +147,70 @@ def make_unet_sd(draw, cfg):
     d_img, d_txt = cfg.image_embed_dim, cfg.cross_attention_dim
     lin("proj", d_img, cfg.ip_num_tokens * d_txt, to=ip["image_proj"])
     norm("norm", d_txt, to=ip["image_proj"])
+    _ip_sites(draw, cfg, ip["ip_adapter"])
+    return sd, motion, ip
+
+
+def _ip_sites(draw, cfg, out) -> None:
+    """The IP-Adapter's per-site ``to_k_ip`` / ``to_v_ip`` weights, keyed by
+    the attention processors' odd ids (down, up, mid)."""
+    chans, d_txt = cfg.block_out_channels, cfg.cross_attention_dim
+    rev = tuple(reversed(chans))
     key_id = 1
     for ch in [c for c, has in zip(chans, cfg.down_block_has_attention) if has
                for _ in range(cfg.layers_per_block)] \
             + [c for c, has in zip(rev, cfg.up_block_has_attention) if has
-               for _ in range(cfg.layers_per_block + 1)] + [mid]:
-        ip["ip_adapter"][f"{key_id}.to_k_ip.weight"] = draw((ch, d_txt), "matrix")
-        ip["ip_adapter"][f"{key_id}.to_v_ip.weight"] = draw((ch, d_txt), "matrix")
+               for _ in range(cfg.layers_per_block + 1)] + [chans[-1]]:
+        out[f"{key_id}.to_k_ip.weight"] = draw((ch, d_txt), "matrix")
+        out[f"{key_id}.to_v_ip.weight"] = draw((ch, d_txt), "matrix")
         key_id += 2
-    return sd, motion, ip
+
+
+def make_ip_adapter_sd(draw, model_config, variant: str, *, num_tokens: int = 16, resampler_dim: int = 768,
+                       depth: int = 4) -> dict:
+    """An IP-Adapter state dict ``{"image_proj", "ip_adapter"}`` in the
+    original modules' key layout of ``variant``: the plus resampler
+    (``num_tokens`` latents of ``resampler_dim``, ``depth`` layers; the
+    published plus head is 16 x 768, depth 4) or the full_face MLP, each
+    reading the image encoder's hidden states (the standard head is
+    ``make_unet_sd``'s)."""
+    ucfg, hidden = model_config.unet, model_config.image_encoder.hidden_size
+    d_txt = ucfg.cross_attention_dim
+    proj = {}
+    lin, _, norm = _writers(draw, proj)
+    if variant == "full_face":  # nn.Sequential(Linear, GELU, Linear, LayerNorm)
+        lin("proj.0", hidden, hidden)
+        lin("proj.2", hidden, d_txt)
+        norm("proj.3", d_txt)
+    elif variant == "plus":
+        dim = resampler_dim
+        proj["latents"] = draw((1, num_tokens, dim), "bias")
+        lin("proj_in", hidden, dim)
+        lin("proj_out", dim, d_txt)
+        norm("norm_out", d_txt)
+        for i in range(depth):
+            norm(f"layers.{i}.0.norm1", dim)
+            norm(f"layers.{i}.0.norm2", dim)
+            lin(f"layers.{i}.0.to_q", dim, dim, bias=False)
+            lin(f"layers.{i}.0.to_kv", dim, 2 * dim, bias=False)
+            lin(f"layers.{i}.0.to_out", dim, dim, bias=False)
+            norm(f"layers.{i}.1.0", dim)
+            lin(f"layers.{i}.1.1", dim, 4 * dim, bias=False)
+            lin(f"layers.{i}.1.3", 4 * dim, dim, bias=False)
+    else:
+        raise ValueError(f"unknown IP-Adapter variant {variant!r}")
+    sites = {}
+    _ip_sites(draw, ucfg, sites)
+    return {"image_proj": proj, "ip_adapter": sites}
+
+
+def save_ip_adapter(ip_sd: dict, path: str) -> int:
+    """Write an IP-Adapter state dict as the nested torch ``.bin`` of the
+    published checkpoints; returns its size in bytes."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({part: {k: torch.from_numpy(v) for k, v in ip_sd[part].items()}
+                for part in ("image_proj", "ip_adapter")}, path)
+    return os.path.getsize(path)
 
 
 def make_adapter_sd(draw, cfg):
@@ -285,11 +340,7 @@ def write_pretrained_dir(root: str, model_config, *, seed: int = 0, dtype=np.flo
     total = _save(unet_sd, os.path.join(root, "unet", name))
     total += _save(motion_sd, os.path.join(root, "motion_adapter", name))
     del unet_sd, motion_sd
-    ip_path = os.path.join(root, "ip_adapter", "ip-adapter.bin")
-    os.makedirs(os.path.dirname(ip_path), exist_ok=True)
-    torch.save({part: {k: torch.from_numpy(v) for k, v in ip_sd[part].items()}
-                for part in ("image_proj", "ip_adapter")}, ip_path)
-    total += os.path.getsize(ip_path)
+    total += save_ip_adapter(ip_sd, os.path.join(root, "ip_adapter", "ip-adapter.bin"))
     for sub, make, sub_cfg in (("vae", make_vae_sd, cfg.vae), ("text_encoder", make_clip_text_sd, cfg.text_encoder),
                                ("image_encoder", make_clip_vision_sd, cfg.image_encoder)):
         total += _save(make(draw, sub_cfg), os.path.join(root, sub, name))
