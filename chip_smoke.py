@@ -22,7 +22,8 @@ Phases, one JSON line each, in order:
                    (with its dequantising epilogue), and the int8 3x3 conv
                    at every UNet and VAE-decoder site of the serving default
                    (int32 equal to the plain version, the dequantised output
-                   within a bf16 rounding)
+                   within a bf16 rounding), and the grouped weight quantiser
+                   over every int8 site in one launch (equal bit for bit)
 4. ``unet``     -- one full-width (SD1.5) VideoUNet evaluation, kernels vs
                    plain attention, PSNR between the two; the same weights
                    with ``conv_impl='pallas'`` (every resnet stage through
@@ -38,6 +39,14 @@ Phases, one JSON line each, in order:
                    the serving default ``PipelineConfig()`` (int8 convs) on
                    the same weights, once for its latents and once decoded;
                    launch counts checked against the config
+6b. ``scan``    -- ``dispatch='scan'`` (step kinds replayed from CUDA graphs)
+                   against ``'stepwise'`` from the same seed at requests
+                   (b), (d), (e) and (f)'s shapes at the serving default and
+                   one ``conv_impl='pallas'`` request: equal bit for bit,
+                   launches as derived with replays counted, step ms by kind
+                   each way, capture ms, the graphs' pool; then a synthetic
+                   full-width LoRA (peft and kohya layouts) merged, its int8
+                   weights quantised again, a 5-step scan request
 7. ``pretrained`` -- a full-width diffusers-layout checkpoint directory
                    (``I2VModelConfig()``, fp16, seeded random weights, the
                    77-token tokenizer) and an adapter task
@@ -54,14 +63,15 @@ Phases, one JSON line each, in order:
                    0.5`` at 25 steps, (j) a request over the card's memory
                    envelope, (f) a 48-frame clip (4 anchored temporal
                    windows, 5 steps); (c) and (j) fail with the worker
-                   serving on, each request's launches equal the config's;
+                   serving on, each request's launches equal the config's
+                   and its dispatch is reported ((a) takes 'auto' -> 'scan');
                    (a)'s ``latency_s`` and phase times are the clip latency;
                    (d)'s full and cached, (e)'s CFG and cond-only step times
 8b. ``serve_heads`` -- ``from_pretrained`` of the same directory: with the
                    standard head, the card's memory budgets (peak memory of
                    one 512 px UNet evaluation at 32 and 64 frame-evaluations,
-                   the encoder cache of one full step, one evaluation at the
-                   pipeline's envelope), ``vae_tiling``'s tiled decode of 16
+                   the encoder cache of one full step, one evaluation and one
+                   'scan' request at the pipeline's envelope), ``vae_tiling``'s tiled decode of 16
                    frames at 768 px against the untiled one, and (g) a FreeU
                    request (``enable_freeu``); with (h) a plus and (i) a
                    full_face IP-Adapter file written beside the directory, one
@@ -145,9 +155,9 @@ PALLAS_TRAIN_STEPS = 2
 # the same weights and draws: the two differ by bf16 rounding of 44 convs
 PALLAS_LOSS_REL_MAX = 0.02
 # the counted kernel wrappers (K1, K3, K2, K4, K7, the int8 3x3 conv and its
-# weight quantiser)
+# grouped weight quantiser)
 KERNELS = ("flash_attention", "flash_attention_bwd", "temporal_attention_cs", "conv3x3_kernel",
-           "int8_matmul", "int8_conv3x3_kernel", "quantize_weight")
+           "int8_matmul", "int8_conv3x3_kernel", "quantize_weights")
 
 
 def emit(obj) -> None:
@@ -191,20 +201,17 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float):
 
 
 def launch_counts() -> dict:
-    """Launches of every counted kernel wrapper since the last reset."""
-    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
+    """Launches of every counted kernel wrapper since the last reset (a
+    CUDA graph's launches counted at each replay: ``ops.launches``)."""
+    from i2v_adapter_tpu_torch.ops import launches
 
-    return {**attention.launch_counts(), **conv3x3.launch_counts(),
-            "int8_matmul": profile_int8_dense.int8_matmul.launches, **int8.launch_counts()}
+    return launches.snapshot()
 
 
 def reset_launch_counts() -> None:
-    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
+    from i2v_adapter_tpu_torch.ops import launches
 
-    attention.reset_launch_counts()
-    conv3x3.reset_launch_counts()
-    int8.reset_launch_counts()
-    profile_int8_dense.int8_matmul.launches = 0
+    launches.reset()
 
 
 def expected_counts(**counts) -> dict:
@@ -345,15 +352,18 @@ def clip_denoise_steps(steps: int = 25, strength: float = 0.9) -> int:
 
 def int8_launches(model_cfg, latent: int, cached: bool = False) -> dict:
     """Launches of the int8 conv kernel, of K7 and of the weight quantiser
-    (one per int8 conv of either kind) per serving UNet evaluation (a
-    ``cached`` one: mid and up only) and per decode, under the serving
-    default."""
+    per serving UNet evaluation (a ``cached`` one: mid and up only), per
+    decode and per load under the serving default: the weights are
+    quantised once per weights version, in one grouped launch for every
+    int8 site of the pipeline (when it is built, when int8 is switched on,
+    after a LoRA merge), none per evaluation or decode."""
     ucfg = model_cfg.unet.replace(int8_conv=True)
     convs = sum(n for *_, n in int8_unet_sites(ucfg, latent, cached))
     downs = sum(n for *_, n in int8_downsample_sites(ucfg, latent, cached))
     dec = sum(n for *_, n in int8_decoder_sites(model_cfg.vae, latent))
-    return {"per_eval": {"int8_conv3x3_kernel": convs, "int8_matmul": downs, "quantize_weight": convs + downs},
-            "per_decode": {"int8_conv3x3_kernel": dec, "int8_matmul": 0, "quantize_weight": dec}}
+    return {"per_eval": {"int8_conv3x3_kernel": convs, "int8_matmul": downs, "quantize_weights": 0},
+            "per_decode": {"int8_conv3x3_kernel": dec, "int8_matmul": 0, "quantize_weights": 0},
+            "per_load": {"int8_conv3x3_kernel": 0, "int8_matmul": 0, "quantize_weights": 1}}
 
 
 def request_launches(model_cfg, latent: int, steps: int, *, ip_tokens: int = 0, encoder_cache: int = 1,
@@ -745,8 +755,9 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
     serving pipeline stores them: the kernel's int32 sums equal to the plain
     version's (exact float64 products) from the same quantiser, its bf16
     dequantised output within a bf16 rounding of the plain dequantisation;
-    then times: the kernel, the whole ``int8_conv`` op (abs-max, weight
-    quantiser, kernel), the plain version, and the exact path's bf16 cuDNN
+    then times: the kernel, the whole ``int8_conv`` op as the models run it
+    (abs-max and kernel; the weights quantised once per load), the plain
+    version, and the exact path's bf16 cuDNN
     conv at the same site (context: no PyTorch call computes an int8 conv,
     so ``library_ms`` is null)."""
     import torch.nn.functional as F
@@ -772,7 +783,9 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
            "within_bf16_rounding": bool(((got - want).abs() <= want.abs() * 2.0 ** -8).all())}
     del got32, want32, got, want
     row["ms"] = device_ms(lambda: I8.int8_conv3x3_kernel(x, wq, xs, ws, bias), iters)
-    row["op_ms"] = device_ms(lambda: I8.int8_conv(x, kernel, bias), iters)
+    weight = torch.nn.Parameter(param, requires_grad=False)  # a model's parameter: quantised once
+    I8.prepare_weights([weight])
+    row["op_ms"] = device_ms(lambda: I8.int8_conv(x, weight.permute(2, 3, 1, 0), bias), iters)
     row["plain_ms"] = device_ms(lambda: I8.int8_conv_plain(x, kernel, bias), 1)
     row["cudnn_bf16_ms"] = device_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), param, bias, padding=1), iters)
     row["library_ms"] = None
@@ -783,25 +796,47 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
     return row, row["equal_int32"] and row["within_bf16_rounding"]
 
 
-def _quantize_weight_case(name, c, co, dev, iters, clip_weight):
-    """The weight quantiser on a bf16 OIHW parameter of one conv shape: the
-    kernel's int8 weights and fp32 scales equal to the plain version's, and
-    times; no single PyTorch call computes it (``library_ms`` null)."""
+def _quantize_weights_case(name, shapes, dev, iters, load_weight):
+    """The grouped weight quantiser on bf16 OIHW parameters of ``shapes``
+    ((C, Cout) per int8 site, as the serving pipeline stores them), all in
+    one launch: each site's int8 weights and fp32 scales equal to the plain
+    version's, bit for bit; then times of the one launch and of the plain
+    version over every site; no single PyTorch call computes it
+    (``library_ms`` null).  The bound: each parameter read once (bf16), the
+    int8 weights and the scales written once."""
     from i2v_adapter_tpu_torch.ops import int8 as I8
 
-    g = torch.Generator(device=dev).manual_seed(c * 7 + co)
-    param = (torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(torch.bfloat16)
-    kernel = param.permute(2, 3, 1, 0)
-    (wq, ws), (pq, ps) = I8.quantize_weight(kernel), I8.quantize_weight_plain(kernel)
-    row = {"name": name, "c": c, "cout": co, "launches_per_clip": clip_weight,
-           "equal": bool(torch.equal(wq, pq) and torch.equal(ws, ps)),
-           "abs_err_int8": float((wq.int() - pq.int()).abs().max()), "abs_err_scale": abs_err(ws, ps)}
-    row["ms"] = device_ms(lambda: I8.quantize_weight(kernel), iters)
-    row["plain_ms"] = device_ms(lambda: I8.quantize_weight_plain(kernel), iters)
+    g = torch.Generator(device=dev).manual_seed(len(shapes))
+    kernels = [(torch.randn(co, c, 3, 3, generator=g, device=dev) / math.sqrt(9 * c)).to(torch.bfloat16)
+               .permute(2, 3, 1, 0) for c, co in shapes]
+    got = I8.quantize_weights(kernels)
+    unequal = [i for i, (k, (wq, ws)) in enumerate(zip(kernels, got))
+               if not (lambda p: torch.equal(wq, p[0]) and torch.equal(ws, p[1]))(I8.quantize_weight_plain(k))]
+    values = sum(9 * c * co for c, co in shapes)
+    rows = sum(co for _, co in shapes)
+    row = {"name": name, "sites": len(shapes), "output_channels": rows, "values": values,
+           "launches_per_load": load_weight, "launches_per_clip": 0, "sites_unequal": unequal,
+           "equal": not unequal, "abs_err_int8": 0.0 if not unequal else float("nan")}
+    del got
+    row["ms"] = device_ms(lambda: I8.quantize_weights(kernels), iters)
+    row["plain_ms"] = device_ms(lambda: [I8.quantize_weight_plain(k) for k in kernels], 1)
     row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = bound_ms(9.0 * c * co, 3.0 * 9 * c * co + 4.0 * co, PEAK_INT8_OPS)
+    row["bound_ms"], row["bound_by"] = bound_ms(float(values), 3.0 * values + 4.0 * rows, PEAK_INT8_OPS)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row, row["equal"]
+
+
+def int8_site_shapes(model_cfg) -> list:
+    """``(C, Cout)`` of every int8 site of the serving default (the UNet's
+    resnet, down- and upsample convs, the VAE decoder's), in module order,
+    from the models built on the meta device."""
+    from i2v_adapter_tpu_torch.models import AutoencoderKL, VideoUNet
+    from i2v_adapter_tpu_torch.models.layers import int8_sites
+
+    with torch.device("meta"):
+        unet = VideoUNet(model_cfg.unet.replace(int8_conv=True), device="meta")
+        vae = AutoencoderKL(model_cfg.vae.replace(int8_decode=True), device="meta")
+    return [(m.weight.shape[1], m.weight.shape[0]) for m in int8_sites(unet, vae)]
 
 
 # the tool's shapes that the smoke run times (one per UNet level)
@@ -942,17 +977,14 @@ def phase_kernels(dev, rehearse: bool):
         sites[(32, h, c, co)] = [steps * cnt, cnt]
     for h, c, co, cnt in int8_decoder_sites(serving.vae, 64):
         sites.setdefault((16, h, c, co), [0, 0])[0] += cnt
-    weights = {}  # (C, Cout) -> the weight quantiser's launches per clip
     for (b, h, c, co), (clip, per_eval) in sites.items():
         part = "unet" if b == 32 else "decoder"
         add("int8_conv3x3_kernel", _int8_conv_case(f"{part} H{h} {c}->{co}", b, h, h, c, co, dev,
                                                    3 if h >= 256 else 5, clip, per_eval), "int8 conv ")
-        weights[(c, co)] = weights.get((c, co), 0) + clip
-    for h, c, co, cnt in int8_downsample_sites(serving.unet, 64):
-        weights[(c, co)] = weights.get((c, co), 0) + steps * cnt
-    for (c, co), clip in weights.items():
-        add("quantize_weight", _quantize_weight_case(f"weights {c}->{co}", c, co, dev, 5, clip),
-            "int8 weights ")
+    # the grouped weight quantiser: every int8 site of the serving default in
+    # one launch, once per load (none per clip)
+    add("quantize_weights", _quantize_weights_case("every int8 site of I2VModelConfig()",
+                                                   int8_site_shapes(serving), dev, 5, 1), "int8 weights ")
     add("int8_conv3x3_kernel", _int8_conv_case("ragged 2x12x8 144->264", 2, 12, 8, 144, 264, dev, 5, 0),
         "int8 conv ")
     add("int8_conv3x3_kernel", _int8_conv_case("wide strips 1x6x300 64->136", 1, 6, 300, 64, 136, dev,
@@ -1025,6 +1057,7 @@ def phase_unet(model_cfg, dev, dtype, rehearse: bool):
     stage through K4) and with the temporal kernel forced at every motion
     module, each against the ``'auto'`` result."""
     from i2v_adapter_tpu_torch.models import VideoUNet
+    from i2v_adapter_tpu_torch.models.layers import prepare_int8
     from i2v_adapter_tpu_torch.models.temporal import TemporalSelfAttention
     from i2v_adapter_tpu_torch.utils.random_init import randomize_
 
@@ -1060,9 +1093,11 @@ def phase_unet(model_cfg, dev, dtype, rehearse: bool):
         got_forced, _, forced_counts = counted(unet)
         for m in temporal:
             m.attn_impl = "auto"
-        # the serving default's int8 convs on the same weights: kernels, then
+        # the serving default's int8 convs on the same weights (quantised
+        # once, as a pipeline does when int8 is switched on): kernels, then
         # the plain int8 convs
         unet.set_int8(True)
+        prepare_int8(unet)
         got_int8, int8_s, int8_counts = counted(unet)
         with plain_int8_convs():
             want_int8 = run(unet)
@@ -1220,7 +1255,7 @@ def phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse: bool):
         raise AssertionError("two seeds gave the same clip")
     if int8_line["failed"]:
         raise AssertionError(f"pipeline, serving default (int8): {int8_line['failed']}")
-    return counts, fused_counts, int8_counts
+    return counts, fused_counts, int8_counts, pipe
 
 
 def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, rehearse: bool):
@@ -1283,6 +1318,209 @@ def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, 
         "failed": failed,
     }
     return line, runs["np"]["launches"]
+
+
+def _scan_step_ms(step_ms, kinds, scan: bool) -> dict:
+    """Step ms by step kind: under ``'scan'`` the kind's first step (eager),
+    its second (capture, then the first replay: the card idles while the
+    host captures) and the mean of its replays after that; under
+    ``'stepwise'`` the mean of the kind's steps after its first."""
+    out = {}
+    for kind in dict.fromkeys(kinds):
+        ms = [t for t, k in zip(step_ms, kinds) if k == kind]
+        if scan:
+            out[kind] = {"eager": ms[0], "capture_step": ms[1] if len(ms) > 1 else None,
+                         "replay_mean": float(np.mean(ms[2:])) if len(ms) > 2 else None, "n": len(ms)}
+        else:
+            out[kind] = {"first": ms[0], "mean_after_first": float(np.mean(ms[1:])) if len(ms) > 1 else None,
+                         "n": len(ms)}
+    return out
+
+
+def _synthetic_lora(unet, layout: str, seed: int) -> dict:
+    """A full-width LoRA state dict of rank 4 over ``unet``'s module names in
+    the diffusers paths: ``'peft'`` on every spatial attention's q, k, v and
+    out projections (``lora_A`` / ``lora_B``), ``'kohya'`` on every resnet's
+    two 3x3 convs (``lora_down`` 3x3, ``lora_up`` 1x1, ``alpha``: the int8
+    sites)."""
+    rank, g = 4, torch.Generator().manual_seed(seed)
+    diffusers = lambda name: re.sub(r"(blocks|attentions|resnets)_(\d+)", r"\1.\2", name)  # noqa: E731
+    sd = {}
+    for name, m in unet.named_modules():
+        if layout == "peft" and re.search(r"attentions_\d+\.transformer_blocks_\d+\.attn[12]\.(to_[qkv]|to_out)$",
+                                          name):
+            path = diffusers(name) + (".0" if name.endswith("to_out") else "")
+            cout, cin = m.weight.shape
+            sd[f"unet.{path}.lora_A.weight"] = (torch.randn(rank, cin, generator=g) / math.sqrt(cin)).numpy()
+            sd[f"unet.{path}.lora_B.weight"] = (torch.randn(cout, rank, generator=g) * 0.05).numpy()
+        elif layout == "kohya" and re.search(r"resnets_\d+\.conv[12]$", name):
+            key = "lora_unet_" + diffusers(name).replace(".", "_")
+            cout, cin = m.weight.shape[:2]
+            sd[f"{key}.lora_down.weight"] = (torch.randn(rank, cin, 3, 3, generator=g) / math.sqrt(9 * cin)).numpy()
+            sd[f"{key}.lora_up.weight"] = (torch.randn(cout, rank, 1, 1, generator=g) * 0.05).numpy()
+            sd[f"{key}.alpha"] = np.array(float(rank), np.float32)
+    return sd
+
+
+def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
+    """``dispatch='scan'`` against ``'stepwise'`` from the same seed at the
+    shapes of the daemon's requests (b), (d), (e) and (f), at the serving
+    default on the ``pipeline`` phase's weights, and one
+    ``conv_impl='pallas'`` request (exact convs, K4 at every resnet stage):
+    the outputs equal bit for bit, each way's launches equal to the config's
+    derivation (a CUDA graph's launches counted at every replay), every kind
+    used twice or more replayed from a captured graph, step ms by kind each
+    way, the captures' host ms, the graphs' pool bytes and each call's peak
+    memory.  Then a synthetic full-width LoRA in the peft layout (every
+    spatial attention's projections) and in the kohya layout (every
+    resnet's 3x3 convs, so the int8 sites) merged into the serving pipeline
+    with ``load_lora_weights``: each merge quantises the int8 weights again
+    in one grouped launch, and a 5-step ``'scan'`` request captures its
+    graphs afresh and gives another clip than before the merges."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import cfg_steps, step_kinds
+    from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows
+    from i2v_adapter_tpu_torch.utils.safetensors_io import save_file
+
+    size, frames, _ = serving_sizes(rehearse)
+    long_frames = 12 if rehearse else 48
+    latent = size // model_cfg.vae.spatial_scale_factor
+    dtype = "float32" if rehearse else "bfloat16"
+    modules = {"unet": pipe.unet, "vae": pipe.vae, "text_encoder": pipe.text_encoder,
+               "image_encoder": pipe.image_encoder}
+    reset_launch_counts()
+    serving = I2VAdapterPipeline(model_cfg, modules, pipe.tokenizer,
+                                 PipelineConfig(num_frames=frames, height=size, width=size, blur_sigma=1.0,
+                                                dtype=dtype), device=dev)
+    load = launch_counts()
+    fused_cfg = model_cfg.replace(unet=fused_unet.config)
+
+    def fused():  # exact convs: built last, it switches the shared decoder to exact
+        return I2VAdapterPipeline(fused_cfg, dict(modules, unet=fused_unet), pipe.tokenizer,
+                                  PipelineConfig(num_frames=frames, height=size, width=size, blur_sigma=1.0,
+                                                 dtype=dtype, int8_conv=False), device=dev)
+
+    image = np.random.default_rng(6).integers(0, 256, (size, size, 3), dtype=np.uint8)
+    cap = model_cfg.unet.motion_max_seq_length
+    window = min(16, cap - 1)
+    windows = len(temporal_windows(long_frames, window, max(1, min(12, window - 1))))
+    flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True)
+    steps = 7 if rehearse else 25  # (d) and (e): the daemon's 25 steps on the card
+    # (pipeline, call arguments, launch derivation of n denoise steps, output)
+    serve = lambda: serving  # noqa: E731
+    requests = {
+        "b_five_steps": (serve, dict(seed=1, num_inference_steps=5),
+                         lambda n: request_launches(model_cfg, latent, n), "np"),
+        "d_encoder_cache": (serve, dict(seed=2, encoder_cache=2, num_inference_steps=steps),
+                            lambda n: request_launches(model_cfg, latent, n, encoder_cache=2, decode_calls=0),
+                            "latent"),
+        "e_cfg_cutoff": (serve, dict(seed=2, cfg_cutoff=0.5, num_inference_steps=steps),
+                         lambda n: request_launches(model_cfg, latent, n, decode_calls=0), "latent"),
+        "f_tiled_48": (serve, dict(seed=3, num_inference_steps=3 if rehearse else 5, num_frames=long_frames),
+                       lambda n: request_launches(model_cfg, latent, n, windows=windows, decode_calls=0), "latent"),
+        "pallas_five_steps": (fused, dict(seed=1, num_inference_steps=5),
+                              lambda n: expected_counts(flash_attention=n * flash, temporal_attention_cs=n * temporal,
+                                                        conv3x3_kernel=n * conv_launches_per_unet_eval(fused_cfg.unet)),
+                              "latent"),
+    }
+
+    def run(p, dispatch, kw, output):
+        reset_launch_counts()
+        base = 0
+        if not rehearse:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = p("a cat", condition_image=image, output_type=output, dispatch=dispatch, **kw)
+        rec = {"seconds": time.perf_counter() - t0, "timings": dict(p.last_timings),
+               "dispatch": dict(p.last_dispatch), "launches": launch_counts(),
+               "peak_bytes": None if rehearse else torch.cuda.max_memory_allocated() - base}
+        return out, rec
+
+    failed, lines, counts = [], {}, expected_counts()
+    for rid, (make, kw, derive, output) in requests.items():
+        p = make()
+        want, step = run(p, "stepwise", kw, output)
+        got, scan = run(p, "scan", kw, output)
+        n = len(step["timings"]["step_ms"])
+        n_cfg = cfg_steps(kw.get("cfg_cutoff", 1.0), n)
+        kinds = step_kinds(n, kw.get("encoder_cache", 1), n_cfg)
+        expected = expected_counts() if rehearse else derive(n)
+        captures = 0 if rehearse else sum(kinds.count(k) > 1 for k in set(kinds))
+        equal = bool(np.array_equal(got, want))
+        line = {"output": output, "shape": list(got.shape), "denoise_steps": n, "kinds": kinds,
+                "equal_to_stepwise": equal, "max_abs_diff": float(np.max(np.abs(got.astype(np.float64)
+                                                                                 - want.astype(np.float64)))),
+                "stepwise_ms_by_kind": _scan_step_ms(step["timings"]["step_ms"], kinds, False),
+                "scan_ms_by_kind": _scan_step_ms(scan["timings"]["step_ms"], kinds, True),
+                "stepwise_s": step["seconds"], "scan_s": scan["seconds"],
+                "capture_ms": scan["dispatch"].get("capture_ms"),
+                "graph_pool_bytes": scan["dispatch"].get("graph_pool_bytes"),
+                "peak_bytes_stepwise": step["peak_bytes"], "peak_bytes_scan": scan["peak_bytes"],
+                "launches_stepwise": step["launches"], "launches_scan": scan["launches"],
+                "expected_launches": expected, "decode_ms": scan["timings"].get("decode_ms")}
+        lines[rid] = line
+        for k in counts:
+            counts[k] += scan["launches"][k]
+        if not equal:
+            failed.append(f"{rid}: scan differs from stepwise by {line['max_abs_diff']}")
+        if step["launches"] != expected or scan["launches"] != expected:
+            failed.append(f"{rid}: launches stepwise {step['launches']} / scan {scan['launches']} != {expected}")
+        if scan["dispatch"].get("dispatch") != "scan" or len(scan["dispatch"].get("capture_ms", [])) != captures:
+            failed.append(f"{rid}: {scan['dispatch']}, not {captures} captured kinds")
+        if len(scan["timings"]["step_ms"]) != n:
+            failed.append(f"{rid}: {len(scan['timings']['step_ms'])} scan steps, not {n}")
+    del p
+    reset_launch_counts()
+    serving.enable_int8_conv(True)  # the shared decoder back to int8: one more grouped quantiser launch
+    load = {k: load[k] + v for k, v in launch_counts().items()}
+
+    # LoRA: merge the peft file, then the kohya one, each followed by its
+    # int8 weights' one grouped launch; then a 5-step scan request
+    lora_dir = os.path.join(WORK_DIR, "lora")
+    os.makedirs(lora_dir, exist_ok=True)
+    kw = dict(seed=4, num_inference_steps=5)
+    before, _ = run(serving, "scan", kw, "latent")
+    merges = {}
+    for i, layout in enumerate(("peft", "kohya")):
+        path = os.path.join(lora_dir, f"{layout}.safetensors")
+        save_file(_synthetic_lora(serving.unet, layout, 50 + i), path)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        patched = serving.load_lora_weights(path, scale=1.0)
+        if not rehearse:
+            torch.cuda.synchronize()
+        merges[layout] = {"patched": patched, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                          "bytes": os.path.getsize(path)}
+    after, rec = run(serving, "scan", kw, "latent")
+    shutil.rmtree(lora_dir, ignore_errors=True)
+    n = len(rec["timings"]["step_ms"])
+    resnets = len([m for m in serving.unet.modules() if type(m).__name__ == "ResnetBlock2D"])
+    # the peft file patches attention projections only (no int8 site): no
+    # quantiser launch; the kohya file patches every resnet conv: one
+    want_merge = {"peft": expected_counts(), "kohya": expected_counts()} if rehearse else {
+        "peft": expected_counts(), "kohya": expected_counts(**int8_launches(model_cfg, latent)["per_load"])}
+    want_after = expected_counts() if rehearse else request_launches(model_cfg, latent, n, decode_calls=0)
+    lora = {"merges": merges, "expected_merge_launches": want_merge, "resnets": resnets,
+            "max_abs_change": float(np.max(np.abs(after - before))), "finite": bool(np.isfinite(after).all()),
+            "launches": rec["launches"], "expected_launches": want_after,
+            "capture_ms": rec["dispatch"].get("capture_ms"), "dispatch": rec["dispatch"].get("dispatch")}
+    for k in counts:
+        counts[k] += sum(m["launches"][k] for m in merges.values()) + rec["launches"][k] + load[k]
+    if merges["kohya"]["patched"] != 2 * resnets:
+        failed.append(f"lora: kohya patched {merges['kohya']['patched']} convs of {2 * resnets}")
+    if any(m["launches"] != want_merge[layout] for layout, m in merges.items()):
+        failed.append(f"lora: merge launches {[m['launches'] for m in merges.values()]} != {want_merge}")
+    if not (lora["finite"] and lora["max_abs_change"] > 0) or rec["launches"] != want_after:
+        failed.append(f"lora: clip changed {lora['max_abs_change']}, finite {lora['finite']}, "
+                      f"launches {rec['launches']} != {want_after}")
+    emit({"phase": "scan", "requests": lines, "lora": lora, "load_launches": load, "launches": counts,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"scan: {failed}")
+    return counts
 
 
 # the checkpoint directory, the adapter task and the queue live here
@@ -1398,13 +1636,14 @@ def _serve_queue(requests: dict, tag: str, run):
     real = serve_mod.process_request
 
     def counted(pipe, req, out_prefix):
-        before, pipe.last_timings = launch_counts(), {}
+        before, pipe.last_timings, pipe.last_dispatch = launch_counts(), {}, {}
         try:
             return real(pipe, req, out_prefix)
         finally:
             after = launch_counts()
             per_request[os.path.basename(out_prefix)] = {
-                "launches": {k: after[k] - before[k] for k in after}, "timings": dict(pipe.last_timings)}
+                "launches": {k: after[k] - before[k] for k in after}, "timings": dict(pipe.last_timings),
+                "dispatch": dict(pipe.last_dispatch)}
 
     serve_mod.process_request = counted
     try:
@@ -1442,7 +1681,9 @@ def _check_requests(model_cfg, latent, rehearse, per_request, results, specs, fa
             failed.append(f"{rid}: {res}")
         out[rid] = {"ok": res["ok"], "latency_s": res.get("latency_s"), "prep_ms": rec["timings"].get("prep_ms"),
                     "step_ms_mean": float(np.mean(step_ms)) if step_ms else None, "steps": len(step_ms),
-                    "decode_ms": rec["timings"].get("decode_ms"), "launches_as_derived": rec["launches"] == expected}
+                    "decode_ms": rec["timings"].get("decode_ms"), "launches_as_derived": rec["launches"] == expected,
+                    "dispatch": rec.get("dispatch", {}).get("dispatch"),
+                    "capture_ms": rec.get("dispatch", {}).get("capture_ms")}
     return out
 
 
@@ -1537,8 +1778,14 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
     done = [f"{rid}.json.{'failed' if isinstance(spec[2], str) else 'done'}" for rid, spec in specs.items()]
     if served != len(requests) or renamed != sorted(done):
         failed.append(f"served {served}, request files {renamed}")
-    if counts != {k: sum(r["launches"][k] for r in per_request.values()) for k in counts}:
-        failed.append(f"launches outside the requests: {counts}")
+    # outside the requests: the daemon's one load, its int8 weights quantised
+    # in one grouped launch
+    load = expected_counts() if rehearse else expected_counts(**int8_launches(model_cfg, latent)["per_load"])
+    if counts != {k: sum(r["launches"][k] for r in per_request.values()) + load[k] for k in counts}:
+        failed.append(f"launches outside the requests: {counts}, the load's {load}")
+    # (a), the CLI's defaults, takes 'auto' -> 'scan' (22 x 32 x 4096 eval-tokens <= 8 M)
+    if not rehearse and per_request.get("a_defaults", {}).get("dispatch", {}).get("dispatch") != "scan":
+        failed.append(f"a_defaults: dispatch {per_request.get('a_defaults', {}).get('dispatch')}, not 'scan'")
     a = per_request.get("a_defaults", {}).get("timings", {})
     step_ms = a.get("step_ms") or [float("nan")]
     d_ms = per_request.get("d_encoder_cache", {}).get("timings", {}).get("step_ms", [])
@@ -1563,7 +1810,8 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
                                    "temporal_attention_cs": launches_per_unet_eval(model_cfg.unet, latent, True)[1],
                                    **int8_launches(model_cfg, latent)["per_eval"]},
         "launches_per_cached_eval": int8_launches(model_cfg, latent, cached=True)["per_eval"],
-        "launches_per_decode": int8_launches(model_cfg, latent)["per_decode"], "launches": counts,
+        "launches_per_decode": int8_launches(model_cfg, latent)["per_decode"],
+        "launches_per_load": int8_launches(model_cfg, latent)["per_load"], "launches": counts,
         "failed": failed,
     })
     if failed:
@@ -1669,6 +1917,27 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
     at_envelope, finite = peak_of_eval(const_evals // 16 * 16)
     const_frames = pipe.MAX_DECODE_TOKENS // tokens
     decode_at_envelope, decode_finite = peak_of_decode(const_frames)
+    # one 'scan' request at the envelope (16-frame CFG clips: 32 frame-
+    # evaluations each), 2 denoise steps: the eager step, then the capture
+    # and its replay, the graphs' pool in place of the eager working set
+    clips = const_evals // 32
+    image = np.random.default_rng(9).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lat_out = pipe(["a cat"] * clips, condition_image=image, num_frames=16, height=512, width=512,
+                   num_inference_steps=3, output_type="latent", dispatch="scan", seed=0)
+    scan_peak = torch.cuda.max_memory_allocated() - base
+    # what the card held: the allocator's reserve, the graphs' pool included
+    scan_reserved = torch.cuda.max_memory_reserved()
+    scan_request = {"clips": clips, "frame_evals": 32 * clips, "peak_bytes": scan_peak,
+                    "peak_with_weights_share": (weights + scan_peak) / total,
+                    "peak_reserved_bytes": scan_reserved, "peak_reserved_share": scan_reserved / total,
+                    "graph_pool_bytes": pipe.last_dispatch.get("graph_pool_bytes"),
+                    "capture_ms": pipe.last_dispatch.get("capture_ms"), "step_ms": pipe.last_timings["step_ms"],
+                    "finite": bool(np.isfinite(lat_out).all())}
+    del lat_out
+    torch.cuda.empty_cache()
     out = {
         "card_total_bytes": total, "weights_bytes": weights,
         "eval_peak_bytes": {str(k): v for k, v in peaks.items()},
@@ -1685,7 +1954,7 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
         "derived_max_decode_tokens": decode_frames_max * tokens, "max_decode_tokens": pipe.MAX_DECODE_TOKENS,
         "decode_envelope_frames": const_frames, "decode_envelope_peak_bytes": decode_at_envelope,
         "decode_envelope_peak_with_weights_share": (weights + decode_at_envelope) / total,
-        "decode_envelope_finite": decode_finite,
+        "decode_envelope_finite": decode_finite, "scan_request_at_envelope": scan_request,
     }
     failed = []
     if cache_bytes != formula:
@@ -1697,6 +1966,9 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
         failed.append(f"one evaluation at the envelope peaked at {weights + at_envelope} bytes of {total}")
     if weights + decode_at_envelope > total * MEMORY_USABLE or not decode_finite:
         failed.append(f"one decode at the envelope peaked at {weights + decode_at_envelope} bytes of {total}")
+    if max(weights + scan_peak, scan_reserved) > total * MEMORY_USABLE or not scan_request["finite"]:
+        failed.append(f"a scan request at the envelope peaked at {weights + scan_peak} bytes allocated, "
+                      f"{scan_reserved} reserved, of {total}")
     out["failed"] = failed
     return out
 
@@ -2041,17 +2313,17 @@ CSRC = "i2v_adapter_tpu_torch/csrc/"
 SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
-     ("pipeline", "pipeline_pallas", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "train", "train_pallas"),
      "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
-     ("pipeline", "pipeline_pallas", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "train", "train_pallas"),
      "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
      ("train", "train_pallas"), "launches_per_step"),
     ("conv3x3_kernel", "conv3x3_kernel", "conv3x3_kernel", CSRC + "conv3x3.cu",
-     "i2v_adapter_tpu/ops/conv3x3.py:44", ("pipeline_pallas", "train_pallas"), "launches_per_eval"),
+     "i2v_adapter_tpu/ops/conv3x3.py:44", ("pipeline_pallas", "scan", "train_pallas"), "launches_per_eval"),
     ("flash_attention[transposed_io=False]", "flash_attention_row_major", "flash_attention",
      CSRC + "flash_attention.cu", "i2v_adapter_tpu/ops/attention.py:85", ("layouts",),
      "launches_per_eval"),
@@ -2059,12 +2331,14 @@ SUMMARY = (
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:871", ("unet_forced_temporal",),
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
-     "i2v_adapter_tpu/ops/profile_int8_dense.py:103", ("pipeline_int8", "serve", "serve_heads", "int8_tool"),
-     "launches_per_eval"),
+     "i2v_adapter_tpu/ops/profile_int8_dense.py:103",
+     ("pipeline_int8", "scan", "serve", "serve_heads", "int8_tool"), "launches_per_eval"),
     ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "serve", "serve_heads"), "launches_per_clip"),
-    ("quantize_weight", "quantize_weight", "quantize_weight", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "serve", "serve_heads"), "launches_per_clip"),
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "scan", "serve", "serve_heads"),
+     "launches_per_clip"),
+    ("quantize_weights", "quantize_weights", "quantize_weights", CSRC + "int8_conv3x3.cu",
+     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "scan", "serve", "serve_heads"),
+     "launches_per_load"),
 )
 
 
@@ -2106,6 +2380,9 @@ def summary(rows, paths) -> dict:
             out[-1].update({k: means(weight_key, (k,))[0][k] for k in ("dequant_ms", "dequant_bound_ms")})
         if any("cudnn_bf16_ms" in r for r in main):
             out[-1]["cudnn_bf16_ms"] = means(weight_key, ("cudnn_bf16_ms",))[0]["cudnn_bf16_ms"]
+        if weight_key == "launches_per_load":  # the quantiser: once per load, none per clip
+            out[-1].update(launches_per_clip=sum(r["launches_per_clip"] for r in main),
+                           launches_per_load=sum(r["launches_per_load"] for r in main))
     return {"kernels": out}
 
 
@@ -2122,15 +2399,19 @@ def main(argv=None) -> int:
     rehearse = args.rehearse
     dev = torch.device("cpu") if rehearse else torch.device("cuda", 0)
     dtype = torch.float32 if rehearse else torch.bfloat16
-    model_cfg = tiny_test_config() if rehearse else I2VModelConfig()
+    model_cfg = I2VModelConfig()
+    if rehearse:  # the tiny config, its image encoder giving a full_face head's 257 tokens (32 px / 2 px + 1)
+        model_cfg = tiny_test_config()
+        model_cfg = model_cfg.replace(image_encoder=model_cfg.image_encoder.replace(image_size=32, patch_size=2))
 
     info = phase_device(rehearse)
     phase_build(rehearse)
     rows = phase_kernels(dev, rehearse)
     unet, fused_unet, forced_counts = phase_unet(model_cfg, dev, dtype, rehearse)
     layout_counts = phase_layouts(dev, rehearse)
-    counts, fused_counts, int8_counts = phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse)
-    del unet, fused_unet
+    counts, fused_counts, int8_counts, pipe = phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse)
+    scan_counts = phase_scan(model_cfg, pipe, fused_unet, dev, rehearse)
+    del unet, fused_unet, pipe
     ckpt = phase_pretrained(model_cfg, dev, rehearse)
     try:
         serve_counts = phase_serve(model_cfg, dev, rehearse, ckpt)
@@ -2148,6 +2429,7 @@ def main(argv=None) -> int:
     if rows is not None:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
+            "scan": scan_counts,
             "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})

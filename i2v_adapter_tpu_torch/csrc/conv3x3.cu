@@ -550,12 +550,8 @@ int launch_wgmma(const void* x, const void* a, const void* s, const void* w, voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto kern = conv3x3_wgmma_kernel<BN, PRE>;
-  static size_t attr_smem = 0;  // the largest size set so far (per instantiation)
-  if (smem > attr_smem) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_smem = smem;
-  }
+  static SmemLimit limit;
+  if ((err = limit.raise(kern, smem)) != cudaSuccess) return (int)err;
   kern<<<grid, THREADS, smem, stream>>>(wmap, p);
   return (int)cudaGetLastError();
 }

@@ -190,8 +190,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const int rows = THREADS / G;
   const size_t smem = 2u * BK * G * DT * sizeof(float);
   auto kern = flash_fwd_kernel<DT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nq + rows - 1) / rows, bq * heads);
   kern<<<grid, THREADS, smem, stream>>>(
@@ -452,11 +452,16 @@ int launch_wgmma(const TileMap* maps, void* o, float* lse, int bq, int nq, int n
                  cudaStream_t stream) {
   using T = FwdTile<DP>;
   auto kern = flash_fwd_wgmma_kernel<DP, STATIC>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  static SmemLimit limit;  // the carveout is set with it, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
+  if (dev >= 16 || limit.set[dev] < T::SMEM) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    if ((err = limit.raise(kern, T::SMEM)) != cudaSuccess) return (int)err;
+  }
   dim3 grid((nq + T::BQ - 1) / T::BQ, bq * heads);
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(
       maps[0].map, maps[1].map, maps[2].map, TileCoord{maps[0].order}, TileCoord{maps[1].order},

@@ -252,9 +252,10 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* g,
   const size_t smem_kv = (2u * SBK * DP + 2u * SBK) * sizeof(float);
   auto kdq = bwd_dq_kernel<DT>;
   auto kkv = bwd_dkv_kernel<DT>;
-  cudaError_t err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  static SmemLimit limit_dq, limit_kv;
+  cudaError_t err = limit_dq.raise(kdq, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  err = limit_kv.raise(kkv, smem_kv);
   if (err != cudaSuccess) return (int)err;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -915,9 +916,10 @@ int launch_wgmma(const BwdMaps& m, const float2* ld, void* dq, void* dk, void* d
   using T = BwdTile<DP>;
   auto kdq = bwd_dq_wgmma_kernel<DP>;
   auto kkv = bwd_dkv_wgmma_kernel<DP>;
-  cudaError_t err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM_DQ);
+  static SmemLimit limit_dq, limit_kv;
+  cudaError_t err = limit_dq.raise(kdq, T::SMEM_DQ);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM_DKV);
+  err = limit_kv.raise(kkv, T::SMEM_DKV);
   if (err != cudaSuccess) return (int)err;
   kdq<<<dim3((sh.nq + T::WQ * T::R - 1) / (T::WQ * T::R), bq * sh.heads), T::WQ * 128, T::SMEM_DQ, stream>>>(
       m.q, m.g, m.k, m.v, m.cq, m.cg, m.ck, m.cv, ld, static_cast<bf16*>(dq), sh, scale_log2, scale);
@@ -943,9 +945,10 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g, const
                          + 2u * TILE * sizeof(float);
   auto kdq = bwd_dq_mma_kernel<DP, WQ>;
   auto kkv = bwd_dkv_mma_kernel<DP, DO, WK>;
-  cudaError_t err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  static SmemLimit limit_dq, limit_kv;
+  cudaError_t err = limit_dq.raise(kdq, smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  err = limit_kv.raise(kkv, smem_kv);
   if (err != cudaSuccess) return (int)err;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);

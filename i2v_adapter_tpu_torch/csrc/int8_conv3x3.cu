@@ -19,8 +19,9 @@
 // by xs (the correctly rounded IEEE quotient, see quantize()) and round half
 // to even (__float2int_rn) while they stage the pixels, so the values equal
 // torch.round(x.float() / xs) bit for bit.  A second entry point quantises
-// the weights (int8_quantize_weights, one read of the parameter).  Only the abs-max (one read
-// of x) and the weight quantiser run before the launch.
+// the weights of every site of a model in one grouped launch
+// (int8_quantize_weights_grouped, one read of each parameter), once per
+// weights version; only the abs-max (one read of x) runs before the launch.
 //
 // What bounds it here: operations at the UNet sites (2*B*H*W*9*C*Cout int8
 // operations against x, the weights and the output read and written once:
@@ -425,12 +426,9 @@ int launch(const void* wq, ConvParams p, cudaStream_t stream) {
     return -6;
 
   auto kern = int8_conv3x3_wgmma_kernel<BN, In>;
-  static size_t attr_smem = 0;  // the largest size set so far (per instantiation)
-  if (smem > attr_smem) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_smem = smem;
-  }
+  static SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
+  if (err != cudaSuccess) return (int)err;
   kern<<<grid, THREADS, smem, stream>>>(wmap, p);
   return (int)cudaGetLastError();
 }
@@ -446,36 +444,106 @@ int launch_bn(const void* wq, const ConvParams& p, cudaStream_t stream) {
 
 bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// The weight quantiser, grouped: one launch quantises every int8 site of a
+// model (the serving pipeline runs it once per weights version, not per
+// conv call).  A table entry per site: an OIHW parameter (Cout, C, 3, 3) in
+// bf16 or fp32, whose 9*C values per output channel are contiguous, and the
+// site's outputs wq (Cout, 3, 3, C) int8 and ws (Cout,) fp32.  One CTA per
+// output channel n of any site (the CTA finds its site by a binary search of
+// the entries' first rows):
+//
+//   ws[n] = max |w[n]| / 127                        (IEEE division)
+//   wq[n, ky, kx, c] = round(w[n, c, ky, kx] / ws[n])  (half to even)
+//
+// equal bit for bit to ops/int8.py::quantize_weight_plain.  The row is read
+// once, 16 bytes per thread where the row is 16-byte aligned, into shared
+// memory as fp32 while each thread keeps its running max |w|; a shuffle and
+// shared-memory reduction gives the row's max; the quotient is quantize()'s
+// branch-free correctly rounded division (its range condition |w| <= 127 *
+// ws holds by construction; a row whose values are all below ~1e-30 would
+// meet a subnormal remainder, which no trained weight has).  The outputs are
+// written in (tap, c) order, consecutive threads on consecutive bytes,
+// reading the staged row at a stride of 9 floats (odd: no bank conflict).
+//
+// What bounds it: bytes (each parameter read once, one int8 byte and the
+// scales written); the UNet's and the VAE decoder's int8 sites hold about
+// 0.6 G values at SD1.5 width.
+struct QuantEntry {
+  const void* w;   // OIHW parameter
+  int8_t* wq;      // (Cout, 9*C) int8
+  float* ws;       // (Cout,) fp32
+  int row0;        // the entry's first row among all entries' rows
+  int cout, c;
+  int in_dtype;    // 0 float32, 1 bfloat16
+  int vec;         // 1: the rows are 16-byte aligned (vector loads)
+  int pad;
+};
 
-// One CTA per output channel n of an OIHW weight (Cout, C, 3, 3), whose 9*C
-// values are contiguous: ws[n] = max |w[n]| / 127, then
-// wq[n, ky, kx, c] = round(w[n, c, ky, kx] / ws[n]) (IEEE division, half to
-// even), written in the (Cout, 3, 3, C) order the kernels read.  One read
-// of the parameter and one int8 write, in place of the plain version's
-// abs / amax / divide / round / cast / transpose passes.
-template <typename In>
-__global__ void __launch_bounds__(256) quantize_weights_kernel(const In* __restrict__ w, int8_t* __restrict__ wq,
-                                                               float* __restrict__ ws, int C) {
-  __shared__ float red[8];
-  const int n = blockIdx.x, K = 9 * C;
-  const In* row = w + (long long)n * K;
+constexpr int QTHREADS = 256;
+
+__global__ void __launch_bounds__(QTHREADS) quantize_weights_grouped_kernel(const QuantEntry* __restrict__ table,
+                                                                              int n_entries) {
+  extern __shared__ __align__(16) float row[];
+  __shared__ float red[QTHREADS / 32];
+  const int r = blockIdx.x;
+  int lo = 0, hi = n_entries - 1;
+  while (lo < hi) {  // the last entry whose first row is <= r
+    const int mid = (lo + hi + 1) >> 1;
+    if (table[mid].row0 <= r) lo = mid; else hi = mid - 1;
+  }
+  const QuantEntry e = table[lo];
+  const int n = r - e.row0, K = 9 * e.c;
   float m = 0.f;
-  for (int i = threadIdx.x; i < K; i += 256) m = fmaxf(m, fabsf(to_float(row[i])));
+  if (e.in_dtype == 1) {
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(e.w) + (long long)n * K;
+    if (e.vec) {
+      for (int v = threadIdx.x; v < K / 8; v += QTHREADS) {
+        const uint4 u = reinterpret_cast<const uint4*>(src)[v];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          row[8 * v + 2 * j] = f.x;
+          row[8 * v + 2 * j + 1] = f.y;
+          m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < K; i += QTHREADS) {
+        const float f = __bfloat162float(src[i]);
+        row[i] = f;
+        m = fmaxf(m, fabsf(f));
+      }
+    }
+  } else {
+    const float* src = static_cast<const float*>(e.w) + (long long)n * K;
+    if (e.vec) {
+      for (int v = threadIdx.x; v < K / 4; v += QTHREADS) {
+        const float4 f = reinterpret_cast<const float4*>(src)[v];
+        reinterpret_cast<float4*>(row)[v] = f;
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(f.x), fabsf(f.y)), fmaxf(fabsf(f.z), fabsf(f.w))));
+      }
+    } else {
+      for (int i = threadIdx.x; i < K; i += QTHREADS) {
+        row[i] = src[i];
+        m = fmaxf(m, fabsf(src[i]));
+      }
+    }
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
+  __syncthreads();  // also publishes the staged row
   m = red[0];
 #pragma unroll
-  for (int i = 1; i < 8; ++i) m = fmaxf(m, red[i]);
+  for (int i = 1; i < QTHREADS / 32; ++i) m = fmaxf(m, red[i]);
   const float s = __fdiv_rn(m, 127.f);
-  if (threadIdx.x == 0) ws[n] = s;
-  int8_t* out = wq + (long long)n * K;
-  for (int o = threadIdx.x; o < K; o += 256) {  // o = (ky * 3 + kx) * C + c
-    const int tap = o / C, c = o - tap * C;
-    out[o] = (int8_t)__float2int_rn(__fdiv_rn(to_float(row[c * 9 + tap]), s));
+  if (threadIdx.x == 0) e.ws[n] = s;
+  const Scale k{s, __frcp_rn(s)};
+  int8_t* out = e.wq + (long long)n * K;
+  for (int o = threadIdx.x; o < K; o += QTHREADS) {  // o = (ky * 3 + kx) * C + c
+    const int tap = o / e.c, c = o - tap * e.c;
+    out[o] = (int8_t)quantize(row[c * 9 + tap], k);
   }
 }
 
@@ -512,21 +580,18 @@ extern "C" int int8_conv3x3(const void* x, const void* wq, const void* xs, const
   return in_dtype == 1 ? launch_bn<__nv_bfloat16>(wq, p, st) : launch_bn<float>(wq, p, st);
 }
 
-// w (Cout, C, 3, 3) contiguous, bf16 (in_dtype 1) or fp32 (0); wq (Cout, 3,
-// 3, C) int8 and ws (Cout,) fp32.  Returns 0 or the CUDA error code of the
-// launch; -1 bad dtype, -3 bad sizes.
-extern "C" int int8_quantize_weights(const void* w, void* wq, void* ws, int in_dtype, int Cout, int C,
-                                     void* stream) {
-  if (Cout <= 0 || C <= 0 || 9LL * C > 0x7fffffffLL) return -3;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1) {
-    quantize_weights_kernel<__nv_bfloat16><<<Cout, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(w), static_cast<int8_t*>(wq), static_cast<float*>(ws), C);
-  } else if (in_dtype == 0) {
-    quantize_weights_kernel<float><<<Cout, 256, 0, st>>>(static_cast<const float*>(w), static_cast<int8_t*>(wq),
-                                                          static_cast<float*>(ws), C);
-  } else {
-    return -1;
-  }
+// table: n_entries QuantEntry records in device memory (the wrapper builds
+// them), rows the sum of their Cout, max_k the largest 9*C.  Returns 0 or the
+// CUDA error code of the launch; -3 bad sizes.
+extern "C" int int8_quantize_weights_grouped(const void* table, int n_entries, int rows, int max_k, void* stream) {
+  if (n_entries <= 0 || rows <= 0 || max_k <= 0) return -3;
+  const size_t smem = (size_t)max_k * sizeof(float);
+  if (smem > 227 * 1024) return -3;
+  auto kern = quantize_weights_grouped_kernel;
+  static SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<rows, QTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(static_cast<const QuantEntry*>(table),
+                                                                    n_entries);
   return (int)cudaGetLastError();
 }

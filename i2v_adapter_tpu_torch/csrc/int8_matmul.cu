@@ -263,12 +263,9 @@ int launch(const void* x, const void* wt, void* out, int ldo, MmParams p, cudaSt
   // stages, epilogue buffers, barriers, + slack to align the base to 1024 bytes
   const size_t smem = (size_t)p.ns * STAGE + 2 * NB * EB + 2 * p.ns * 8 + 1024;
   auto kern = int8_mm_wgmma_kernel<BN>;
-  static size_t attr_smem = 0;
-  if (smem > attr_smem) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_smem = smem;
-  }
+  static SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
+  if (err != cudaSuccess) return (int)err;
   const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
   kern<<<grid, THREADS, smem, stream>>>(amap, bmap, omap, p);
   return (int)cudaGetLastError();

@@ -168,6 +168,23 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
+// One kernel's dynamic shared-memory limit, raised once per device and size
+// (a static SmemLimit beside the kernel's launch): the attribute is a host
+// call, kept off the per-launch path that a CUDA graph's capture records.
+struct SmemLimit {
+  size_t set[16] = {};
+  template <typename Kernel>
+  cudaError_t raise(Kernel kern, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 16 && smem <= set[dev]) return cudaSuccess;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && dev < 16) set[dev] = smem;
+    return err;
+  }
+};
+
 // cuTensorMapEncodeTiled from the driver the runtime already loaded (no -lcuda)
 static inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;

@@ -206,8 +206,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int fq,
   if (ts < 1) ts = 1;  // one token per CTA, above the budget
   const size_t smem = (size_t)ts * per_token;
   auto kern = temporal_fwd_kernel<T, FMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = ((ts * fq + 31) / 32) * 32;
   if ((s_len + ts - 1) / ts > 65535) return -3;

@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.ops.conv3x3 import gn_silu_conv3x3
-from i2v_adapter_tpu_torch.ops.int8 import int8_conv
+from i2v_adapter_tpu_torch.ops.int8 import drop_weights, int8_conv, prepare_weights
 from i2v_adapter_tpu_torch.ops.norms import fold_gn_affine
 
 
@@ -180,7 +180,7 @@ class ResnetBlock2D(nn.Module):
 
 def _conv(conv: ConvNHWC, x, int8: bool):
     """``conv(x)``, or its int8 version (``ops.int8.int8_conv``) on the same
-    parameters."""
+    parameters, quantised once per weights version."""
     if not int8:
         return conv(x)
     return int8_conv(x, conv.weight.permute(2, 3, 1, 0), conv.bias, stride=conv.stride[0],
@@ -219,9 +219,33 @@ class Upsample2D(nn.Module):
         return _conv(self.conv, x.permute(0, 2, 3, 1), self.int8)
 
 
+def int8_sites(*modules: nn.Module) -> list:
+    """The convs that run in int8 under ``modules``: both 3x3 convs of every
+    int8 ``ResnetBlock2D`` and the conv of every int8 ``Downsample2D`` /
+    ``Upsample2D``, in module order."""
+    sites = []
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, ResnetBlock2D) and m.int8:
+                sites += [m.conv1, m.conv2]
+            elif isinstance(m, (Downsample2D, Upsample2D)) and m.int8:
+                sites.append(m.conv)
+    return sites
+
+
+def prepare_int8(*modules: nn.Module) -> int:
+    """Quantise the weights of every int8 site under ``modules`` whose
+    cached pair is missing or stale, in one grouped launch on the card
+    (``ops.int8.prepare_weights``); returns how many were quantised."""
+    return prepare_weights([conv.weight for conv in int8_sites(*modules)])
+
+
 def set_int8(module: nn.Module, enabled: bool) -> None:
     """Switch every ResnetBlock2D / Downsample2D / Upsample2D under
-    ``module`` to int8 (or back to exact) convs; parameters are untouched."""
+    ``module`` to int8 (or back to exact) convs; parameters are untouched.
+    Switching off drops the sites' quantised weights."""
+    if not enabled:
+        drop_weights([conv.weight for conv in int8_sites(module)])
     for m in module.modules():
         if isinstance(m, (ResnetBlock2D, Downsample2D, Upsample2D)):
             m.int8 = enabled

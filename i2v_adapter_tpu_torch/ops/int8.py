@@ -28,18 +28,27 @@ kernels or raises:
   ``int8_conv3x3_kernel``, a hand-written implicit-GEMM conv on int8
   ``wgmma`` (``csrc/int8_conv3x3.cu``) that quantises ``x`` while staging
   it, so the int8 activation never reaches device memory; only the abs-max
-  pass (one ``aminmax`` read) and the weight quantiser run before it;
+  pass (one ``aminmax`` read) runs before it;
 * any other stride or padding (the stride-2 UNet downsamplers): ``xq``,
   an int8 im2col gathered in PyTorch (pad, nine strided slices, ``cat``),
   then K7 (``ops.profile_int8_dense.int8_matmul``) with its dequantising
   epilogue.
 
-Weights are quantised per call from the parameter (no cache: a changed or
-re-loaded parameter is read afresh), straight into the (Cout, 3, 3, C) =
-(Cout, 9*C) int8 layout both kernels read, K-major: on the card by one more
-kernel of the same source (``quantize_weight``), one read of the parameter.
+Weights are quantised once per weights version, not per call: each int8
+site's OIHW parameter keeps its ``(wq, ws)`` pair, keyed by the parameter's
+``data_ptr``, ``_version`` and dtype, and ``int8_conv`` finds it through
+the HWIO view the models pass (``cached_weights``), so an in-place write (a
+LoRA merge), a reload or a cast rebuilds it at the next
+``prepare_weights`` / ``cached_weights``.  ``prepare_weights`` rebuilds every
+stale site of a list in one grouped launch on the card
+(``quantize_weights``: ``int8_quantize_weights_grouped`` in
+``csrc/int8_conv3x3.cu``, one read of each OIHW parameter), straight into
+the (Cout, 3, 3, C) = (Cout, 9*C) int8 layout both kernels read, K-major;
+the pipeline runs it when it is built, when int8 is switched on and after a
+LoRA merge, so serving launches no quantiser.  ``int8_conv`` without a pair
+quantises its kernel per call (one grouped launch of one site).
 
-``int8_conv3x3_kernel.launches`` and ``quantize_weight.launches`` count
+``int8_conv3x3_kernel.launches`` and ``quantize_weights.launches`` count
 launches of the two kernels and nothing else.  The plain versions are exact on the card too: the int32
 sums (|sum| <= 9 * C * 127^2 < 2^53) are formed as float64 products, in
 row chunks.
@@ -48,8 +57,9 @@ row chunks.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from i2v_adapter_tpu_torch.ops import _build
@@ -93,37 +103,104 @@ def quantize_weight_plain(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     return wq.permute(3, 0, 1, 2).contiguous(), ws
 
 
-_QW_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# one site of the grouped quantiser's table (csrc/int8_conv3x3.cu::QuantEntry)
+_QUANT_ENTRY = np.dtype([("w", "<u8"), ("wq", "<u8"), ("ws", "<u8"), ("row0", "<i4"), ("cout", "<i4"),
+                         ("c", "<i4"), ("in_dtype", "<i4"), ("vec", "<i4"), ("pad", "<i4")])
+_QW_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def quantize_weights(kernels: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``quantize_weight_plain`` of each HWIO kernel (the models pass HWIO
+    views of their OIHW parameters); on CUDA tensors from one grouped kernel
+    launch for all of them (``int8_quantize_weights_grouped``: one CTA per
+    output channel of any site, one read of each OIHW parameter), else the
+    plain version.  ``quantize_weights.launches`` counts the launches."""
+    kernels = list(kernels)
+    if not kernels:
+        return []
+    dev = kernels[0].device
+    if dev.type == "cpu":
+        return [quantize_weight_plain(k) for k in kernels]
+    if dev.type != "cuda":
+        raise RuntimeError(f"quantize_weights: unsupported device {dev}")
+    entries = np.zeros(len(kernels), _QUANT_ENTRY)
+    outs, params, rows = [], [], 0
+    for i, kernel in enumerate(kernels):
+        if kernel.device != dev or kernel.dtype not in _IN_CODES or kernel.ndim != 4 \
+                or tuple(kernel.shape[:2]) != (3, 3):
+            raise TypeError(f"quantize_weights: kernel {tuple(kernel.shape)} {kernel.dtype} on {kernel.device}")
+        c, cout = kernel.shape[2], kernel.shape[3]
+        w = kernel.detach().permute(3, 2, 0, 1).contiguous()  # OIHW: a view of the models' parameters
+        wq = torch.empty((cout, 3, 3, c), dtype=torch.int8, device=dev)
+        ws = torch.empty((cout,), dtype=torch.float32, device=dev)
+        vec = w.data_ptr() % 16 == 0 and (9 * c * w.element_size()) % 16 == 0
+        entries[i] = (w.data_ptr(), wq.data_ptr(), ws.data_ptr(), rows, cout, c, _IN_CODES[w.dtype], vec, 0)
+        rows += cout
+        params.append(w)  # alive until the launch is queued
+        outs.append((wq, ws))
+    table = torch.from_numpy(entries.view(np.uint8)).to(dev)
+    err = _build.entry("int8_conv3x3", "int8_quantize_weights_grouped", _QW_ARGTYPES)(
+        table.data_ptr(), len(kernels), rows, max(9 * k.shape[2] for k in kernels),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err < 0:
+        raise ValueError(f"quantize_weights: {_REFUSALS.get(err, 'refused')} (code {err})")
+    if err != 0:
+        raise RuntimeError(f"quantize_weights kernel launch failed with CUDA error {err}")
+    quantize_weights.launches += 1
+    return outs
+
+
+quantize_weights.launches = 0
 
 
 def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``quantize_weight_plain``'s result; on a CUDA tensor from one kernel
-    launch (``int8_quantize_weights`` in ``csrc/int8_conv3x3.cu``: one read
-    of the OIHW parameter, whose HWIO view the models pass), else the plain
-    version.  ``quantize_weight.launches`` counts the launches."""
-    if kernel.device.type == "cpu":
-        return quantize_weight_plain(kernel)
-    if kernel.device.type != "cuda":
-        raise RuntimeError(f"quantize_weight: unsupported device {kernel.device}")
-    if kernel.dtype not in _IN_CODES:
-        raise TypeError(f"quantize_weight: dtype {kernel.dtype} not supported (float32, bfloat16)")
-    c, cout = kernel.shape[2], kernel.shape[3]
-    w = kernel.detach().permute(3, 2, 0, 1).contiguous()  # OIHW: a view of the models' parameters
-    wq = torch.empty((cout, 3, 3, c), dtype=torch.int8, device=kernel.device)
-    ws = torch.empty((cout,), dtype=torch.float32, device=kernel.device)
-    err = _build.entry("int8_conv3x3", "int8_quantize_weights", _QW_ARGTYPES)(
-        w.data_ptr(), wq.data_ptr(), ws.data_ptr(), _IN_CODES[w.dtype], cout, c,
-        torch.cuda.current_stream(kernel.device).cuda_stream,
-    )
-    if err < 0:
-        raise ValueError(f"quantize_weight: {_REFUSALS.get(err, 'refused')} (code {err})")
-    if err != 0:
-        raise RuntimeError(f"quantize_weight kernel launch failed with CUDA error {err}")
-    quantize_weight.launches += 1
-    return wq, ws
+    """``quantize_weights`` of one kernel."""
+    return quantize_weights([kernel])[0]
 
 
-quantize_weight.launches = 0
+def _weights_key(weight: torch.Tensor) -> tuple:
+    """What identifies one version of a parameter's values: its storage, its
+    in-place write count and its dtype (an inference tensor has no write
+    count: it cannot be written outside inference mode)."""
+    try:
+        version = weight._version
+    except RuntimeError:
+        version = None
+    return weight.data_ptr(), version, weight.dtype, weight.device
+
+
+def prepare_weights(params: Sequence[torch.nn.Parameter]) -> int:
+    """Quantise every OIHW conv parameter of ``params`` whose cached ``(wq,
+    ws)`` pair (kept on the parameter) is missing or stale -- written, cast
+    or moved since -- in one grouped launch on the card; returns how many
+    were quantised."""
+    stale = [w for w in params if w.__dict__.get("_int8_weights", (None,))[0] != _weights_key(w)]
+    if stale:
+        with torch.no_grad():
+            pairs = quantize_weights([w.permute(2, 3, 1, 0) for w in stale])
+        for w, (wq, ws) in zip(stale, pairs):
+            w._int8_weights = (_weights_key(w), wq, ws)
+    return len(stale)
+
+
+def drop_weights(params: Sequence[torch.nn.Parameter]) -> None:
+    """Forget the cached pairs of ``params`` (int8 switched off)."""
+    for w in params:
+        w.__dict__.pop("_int8_weights", None)
+
+
+def cached_weights(kernel: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The cached ``(wq, ws)`` of ``kernel`` when it is the HWIO view of an
+    OIHW parameter whose weights ``prepare_weights`` quantised (rebuilt here
+    first if the parameter changed since); None for any other kernel."""
+    base = kernel._base
+    if not isinstance(base, torch.nn.Parameter) or "_int8_weights" not in base.__dict__ \
+            or kernel.data_ptr() != base.data_ptr() or kernel.stride() != base.permute(2, 3, 1, 0).stride() \
+            or kernel.shape != base.permute(2, 3, 1, 0).shape:
+        return None
+    prepare_weights([base])
+    return base._int8_weights[1], base._int8_weights[2]
 
 
 def activation_scale(x: torch.Tensor) -> torch.Tensor:
@@ -189,10 +266,11 @@ def int8_conv_int32_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
     return torch.cat(outs)
 
 
-def int8_conv_plain(x, kernel, bias, stride: int = 1, padding: int = 1) -> torch.Tensor:
+def int8_conv_plain(x, kernel, bias, stride: int = 1, padding: int = 1, weights=None) -> torch.Tensor:
     """The whole function in plain PyTorch: quantise, exact int32 conv,
-    dequantise."""
-    wq, ws = quantize_weight_plain(kernel)
+    dequantise (``weights``: ``kernel``'s ``(wq, ws)`` when already
+    quantised)."""
+    wq, ws = weights if weights is not None else quantize_weight_plain(kernel)
     xs = activation_scale(x)
     y = int8_conv_int32_plain(quantize_activation(x, xs), wq, stride, padding)
     return dequantize(y, xs, ws, bias, x.dtype)
@@ -251,12 +329,12 @@ int8_conv3x3_kernel.launches = 0
 
 def reset_launch_counts() -> None:
     int8_conv3x3_kernel.launches = 0
-    quantize_weight.launches = 0
+    quantize_weights.launches = 0
 
 
 def launch_counts() -> dict:
     return {"int8_conv3x3_kernel": int8_conv3x3_kernel.launches,
-            "quantize_weight": quantize_weight.launches}
+            "quantize_weights": quantize_weights.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -267,17 +345,19 @@ def launch_counts() -> dict:
 def int8_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, stride: int = 1,
               padding: int = 1) -> torch.Tensor:
     """The reference's ``int8_conv`` (see the module docstring); ``kernel``
-    HWIO (the models pass an HWIO view of their OIHW parameter).  Serving
-    only: no gradient is recorded."""
+    HWIO (the models pass an HWIO view of their OIHW parameter, whose
+    quantised pair ``cached_weights`` finds; any other kernel is quantised
+    in this call).  Serving only: no gradient is recorded."""
     if tuple(kernel.shape[:2]) != (3, 3) or kernel.shape[2] != x.shape[-1]:
         raise ValueError(f"int8_conv: x {tuple(x.shape)} kernel {tuple(kernel.shape)}")
     _check_padding(padding)
+    weights = cached_weights(kernel)
     if x.device.type == "cpu":
-        return int8_conv_plain(x, kernel, bias, stride, padding)
+        return int8_conv_plain(x, kernel, bias, stride, padding, weights)
     if x.device.type != "cuda":
         raise RuntimeError(f"int8_conv: unsupported device {x.device}")
     x, kernel, bias = x.detach(), kernel.detach(), bias.detach()
-    wq, ws = quantize_weight(kernel)
+    wq, ws = weights if weights is not None else quantize_weight(kernel)
     xs = activation_scale(x)
     if stride == 1 and padding == 1:
         return int8_conv3x3_kernel(x, wq, xs, ws, bias)

@@ -1,0 +1,49 @@
+"""The kernel wrappers' launch counters, read and moved together.
+
+Each wrapper counts its launches on its own ``launches`` attribute (K1 and
+K3 ``attention.flash_attention`` / ``flash_attention_bwd``, K2
+``attention.temporal_attention_cs``, K4 ``conv3x3.conv3x3_kernel``, K7
+``profile_int8_dense.int8_matmul``, the int8 conv
+``int8.int8_conv3x3_kernel`` and its weight quantiser
+``int8.quantize_weights``).  A CUDA graph records a wrapper's launch once,
+at capture, where nothing runs, and runs it at every replay: the scan
+dispatch takes a capture's counts back (``restore``) and adds them at each
+replay (``add``), so the counts stay the launches that ran.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+
+def _wrappers():
+    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
+
+    return (attention.flash_attention, attention.flash_attention_bwd, attention.temporal_attention_cs,
+            conv3x3.conv3x3_kernel, profile_int8_dense.int8_matmul, int8.int8_conv3x3_kernel,
+            int8.quantize_weights)
+
+
+def snapshot() -> Dict[str, int]:
+    """Every counted wrapper's launches so far, by wrapper name."""
+    return {w.__name__: w.launches for w in _wrappers()}
+
+
+def since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a ``snapshot``)."""
+    return {name: n - before[name] for name, n in snapshot().items()}
+
+
+def reset() -> None:
+    for w in _wrappers():
+        w.launches = 0
+
+
+def restore(counts: Dict[str, int]) -> None:
+    for w in _wrappers():
+        w.launches = counts[w.__name__]
+
+
+def add(delta: Dict[str, int]) -> None:
+    for w in _wrappers():
+        w.launches += delta.get(w.__name__, 0)

@@ -39,8 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--mesh", type=str, default=None,
                    help="multi-device serving mesh 'data,tensor,seq': not ported yet, refused")
     p.add_argument("--dispatch", type=str, default="auto", choices=("auto", "scan", "stepwise"),
-                   help="'auto' and 'stepwise' run one device pass per denoise step; 'scan' "
-                        "(the whole clip as one dispatch) is not ported yet and is refused")
+                   help="'stepwise' runs one synchronised device pass per denoise step; 'scan' "
+                        "replays each step kind from a CUDA graph; 'auto' picks by the clip's work")
     p.add_argument("--int8_conv", action=argparse.BooleanOptionalAction, default=True,
                    help="serving-mode int8 convs (UNet 3x3s + VAE decoder); --no-int8_conv "
                         "restores exact convs")

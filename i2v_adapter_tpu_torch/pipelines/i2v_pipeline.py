@@ -12,8 +12,11 @@ Counterpart of the JAX ``I2VAdapterPipeline``:
 
 ``_build_parts`` returns the same functions as the JAX package's (prep,
 step, decode, and the encoder-cache step pair and the cond-only step of the
-two opt-in serving approximations); ``__call__`` drives them eagerly on the
-device, one step at a time (the JAX package's ``dispatch='stepwise'``).
+two opt-in serving approximations); ``__call__`` drives the denoise loop
+either eagerly, one step at a time (``dispatch='stepwise'``), or from
+static buffers with each step kind replayed from a CUDA graph
+(``dispatch='scan'``, ``StepGraphs``: the counterpart of the JAX package's
+one fused ``lax.scan`` program); ``'auto'`` picks as the JAX package does.
 Clips longer than the motion modules' cap are denoised in anchored
 temporal windows (``pipelines.tiling``), the UNet can run the CFG-doubled
 batch in chunks (``unet_chunk``), and the decode can be sliced or tiled.
@@ -23,12 +26,16 @@ checkpoint directory through the key maps of ``utils.convert``.
 The serving default, ``PipelineConfig.int8_conv=True``, runs the UNet's
 resnet / down / upsample 3x3 convs and the VAE decoder's convs in int8
 (``ops.int8``); ``enable_int8_conv(False)`` restores exact convs on the
-same weights.  Not ported yet (ROADMAP): meshes, ``dispatch='scan'``, LoRA
-and textual inversion.
+same weights; the int8 sites' quantised weights are built once per weights
+version (``models.layers.prepare_int8``), when the pipeline is built, when
+int8 is switched on and after a LoRA merge.  ``load_lora_weights`` and
+``load_textual_inversion`` are the reference's loaders.  Not ported yet
+(ROADMAP): meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import time
@@ -46,13 +53,16 @@ from i2v_adapter_tpu_torch.models import (
     CLIPVisionEncoder,
     VideoUNet,
 )
+from i2v_adapter_tpu_torch.models.layers import prepare_int8
 from i2v_adapter_tpu_torch.models.vae import decode_sliced, decode_tiled
+from i2v_adapter_tpu_torch.ops import launches
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
 from i2v_adapter_tpu_torch.ops.freeu import FreeUParams
-from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_call
+from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_call, window_weight_tensors
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
 from i2v_adapter_tpu_torch.utils import convert
 from i2v_adapter_tpu_torch.utils import image as image_utils
+from i2v_adapter_tpu_torch.utils import lora
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
 from i2v_adapter_tpu_torch.utils.tokenizer import CLIPTokenizer
 
@@ -78,6 +88,136 @@ def cfg_steps(cfg_cutoff: float, n_steps: int) -> int:
     conditional half only): ``round(cutoff * steps)``, Python's half to even,
     as the JAX sampler counts them."""
     return n_steps if cfg_cutoff >= 1.0 else int(round(cfg_cutoff * n_steps))
+
+
+def step_kinds(n_steps: int, encoder_cache: int, n_cfg: int) -> List[str]:
+    """Each denoise step's kind, as the JAX samplers order them: with
+    ``encoder_cache=2`` pairs of a ``'full'`` step (which keeps the UNet's
+    down-path features) and a ``'cached'`` one, an odd trailing step
+    ``'cfg'`` (exact); otherwise ``n_cfg`` ``'cfg'`` steps, then ``'cond'``
+    (the conditional half only)."""
+    n_pairs = n_steps - n_steps % 2 if encoder_cache > 1 else 0
+    return [("full" if i % 2 == 0 else "cached") if i < n_pairs else ("cfg" if i < n_cfg else "cond")
+            for i in range(n_steps)]
+
+
+_SCAN_STREAMS: dict = {}
+
+
+def _scan_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The scan dispatch's side stream of ``device``, one per device for the
+    process: the allocator's blocks cached on it and the library workspaces
+    made for it (cuBLAS keeps one per stream, about 32 MB) are reused by
+    every call."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SCAN_STREAMS:
+        _SCAN_STREAMS[index] = torch.cuda.Stream(index)
+    return _SCAN_STREAMS[index]
+
+
+class StepGraphs:
+    """The ``dispatch='scan'`` denoise loop: every step reads and writes
+    static buffers (the latents, the timesteps ``t`` and ``t_prev`` as
+    device scalars, the eta noise), so a step kind ("cfg", "full",
+    "cached", "cond"; ``step_kinds``) is one fixed program.
+
+    On the card the first step of a kind runs eagerly (the warm-up that
+    capture needs; its result is the step's), the kind's second step is
+    captured into a CUDA graph and replayed, and every later step of the
+    kind is a replay: no host work inside a step beyond writing ``t``,
+    ``t_prev`` and the noise into their buffers, and no host sync.  Graphs
+    alive together share one private memory pool; ``release(kind)`` drops a
+    kind's graph after its last step and ``close()`` all of them, so the
+    memory is the decoder's again (the allocator returns a released pool's
+    blocks to the card when an allocation needs them).  The
+    launch counters count
+    each replay (``ops.launches``).  On the CPU every step runs the same
+    static-buffer program eagerly.  With ``eta > 0`` the noise is drawn from
+    ``generator`` before each step, in the order the stepwise loop draws it,
+    so both dispatches give the same clip.  A capture or replay that fails
+    raises; there is no fallback to the eager loop."""
+
+    def __init__(self, parts, consts, latents: torch.Tensor, generator=None, eta: float = 0.0):
+        _, step_fn, _, _, _, (step_full, step_cached, step_cond) = parts
+        self.step_fns = {"cfg": step_fn, "full": step_full, "cached": step_cached, "cond": step_cond}
+        self.consts, self.generator = consts, generator
+        dev = latents.device
+        self.cuda = dev.type == "cuda"
+        self.latents = latents.clone()
+        self.t = torch.zeros((), dtype=torch.long, device=dev)
+        self.tp = torch.zeros((), dtype=torch.long, device=dev)
+        self.noise = torch.empty_like(self.latents) if eta > 0.0 else None
+        self.caches = None  # the last 'full' step's down-path features
+        self.graphs, self.counts, self.seen = {}, {}, set()
+        self.capture_ms: List[float] = []
+        self.pool_bytes = 0  # the card memory the captures reserved
+
+    def _body(self, kind: str) -> None:
+        args = (self.consts, self.latents, self.t, self.tp)
+        if kind == "full":
+            new, self.caches = self.step_fns["full"](*args, eta_noise=self.noise)
+        elif kind == "cached":
+            new = self.step_fns["cached"](*args, self.caches, eta_noise=self.noise)
+        else:
+            new = self.step_fns[kind](*args, eta_noise=self.noise)
+        self.latents.copy_(new)
+
+    def step(self, kind: str, t, tp) -> None:
+        """One denoise step of ``kind`` from timestep ``t`` to ``tp``, queued
+        on the current stream."""
+        self.t.fill_(int(t))
+        self.tp.fill_(int(tp))
+        if self.noise is not None:
+            self.noise.copy_(torch.randn(self.latents.shape, generator=self.generator, device=self.latents.device))
+        if kind not in self.graphs and self.cuda and kind in self.seen:
+            self._capture(kind)
+        if kind in self.graphs:
+            self.graphs[kind].replay()
+            launches.add(self.counts[kind])
+        else:
+            self._body(kind)
+            self.seen.add(kind)
+
+    def _capture(self, kind: str) -> None:
+        # the pool reserves up to about twice the eager step's working set,
+        # which the allocator keeps cached (nothing can be returned to the
+        # card while a capture runs): return the cached blocks first when the
+        # card could not hold both
+        if torch.cuda.mem_get_info()[0] < 2 * (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()):
+            torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        before = launches.snapshot()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        # graphs alive together share the first one's pool (they replay in
+        # the order they were captured); a graph with none alive beside it
+        # starts a pool of its own
+        shared = next(iter(self.graphs.values()), None)
+        if shared is not None:  # capture on the current (side) stream
+            graph.capture_begin(pool=shared.pool())
+        else:
+            graph.capture_begin()
+        try:
+            self._body(kind)
+        finally:
+            graph.capture_end()
+        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        # nothing ran at capture: its counts are added back at each replay
+        self.counts[kind] = launches.since(before)
+        launches.restore(before)
+        self.graphs[kind] = graph
+        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+
+    def release(self, kind: str) -> None:
+        """Drop ``kind``'s graph (its last step has been queued); the pool's
+        blocks go back to the allocator once no graph holds them."""
+        self.graphs.pop(kind, None)
+        if kind == "cached":
+            self.caches = None
+
+    def close(self) -> None:
+        self.graphs.clear()
+        self.caches = None
 
 
 class I2VAdapterPipeline:
@@ -117,6 +257,10 @@ class I2VAdapterPipeline:
         )
         self.schedule = make_schedule(model_config.scheduler)
         self.last_timings: dict = {}
+        # the last call's dispatch, and under 'scan' its captures' host ms
+        # and the graphs' pool bytes
+        self.last_dispatch: dict = {}
+        self.prepare_int8()
 
     @classmethod
     def from_pretrained(
@@ -138,8 +282,10 @@ class I2VAdapterPipeline:
         Without an I2V-adapter checkpoint the adapter is the zero-init no-op.
         The IP-Adapter's head variant (standard, plus or full_face) and its
         geometry are read from its keys; a plus or full_face head whose
-        input width is not the image encoder's hidden size is refused with
-        ``ValueError`` before the UNet is read.
+        input width is not the image encoder's hidden size, or a full_face
+        head whose token count (its layout's, 257) is not the image
+        encoder's (patches + 1), is refused with ``ValueError`` before the
+        UNet is read.
 
         Each model is converted, loaded into its module on ``device`` and
         cast to the pipeline's dtype before the next file is read, so the
@@ -174,6 +320,12 @@ class I2VAdapterPipeline:
                 raise ValueError(
                     f"the IP-Adapter {ucfg.ip_variant} head reads {ucfg.ip_hidden_dim}-wide hidden "
                     f"states, the image encoder gives {hidden}")
+            enc = model_config.image_encoder
+            tokens = (enc.image_size // enc.patch_size) ** 2 + 1
+            if ucfg.ip_variant == "full_face" and ucfg.ip_num_tokens != tokens:
+                raise ValueError(
+                    f"the IP-Adapter full_face head carries {ucfg.ip_num_tokens} image tokens, the image "
+                    f"encoder gives {tokens} ({enc.image_size} px in {enc.patch_size} px patches, + 1)")
         unet = VideoUNet(model_config.unet, device=device)
         tree = convert.convert_unet(
             load("unet", required=True), model_config.unet, load("motion_adapter", motion_adapter_path),
@@ -222,6 +374,38 @@ class I2VAdapterPipeline:
         )
         self.unet.set_int8(enabled)
         self.vae.set_int8(enabled)
+        self.prepare_int8()
+
+    def prepare_int8(self) -> int:
+        """Quantise the int8 sites' weights whose cached pair is missing or
+        stale (built, cast, moved or written since), in one grouped kernel
+        launch on the card; returns how many sites were quantised.  Run when
+        the pipeline is built, when int8 is switched on, after a LoRA merge
+        and at the start of every call (a no-op while nothing changed)."""
+        return prepare_int8(self.unet, self.vae)
+
+    def load_lora_weights(self, path: str, scale: float = 1.0) -> int:
+        """Merge a LoRA checkpoint (peft or kohya layout; ``utils.lora``) into
+        the UNet's weights; returns the number of patched layers.  The
+        patched int8 sites are quantised again at once; CUDA graphs live
+        within one call, so none outlives the merge."""
+        patched = lora.merge_lora(self.unet, convert.load_state_dict(path), scale)
+        self.prepare_int8()
+        return patched
+
+    def load_textual_inversion(self, path: str, token: str) -> None:
+        """Load a learned embedding (the A1111 ``string_to_param`` file or the
+        diffusers ``{token: tensor}`` one) and register ``token``; the text
+        encoder's vocabulary grows by its rows."""
+        sd = convert.load_state_dict(path)
+        if "string_to_param" in sd:  # A1111 format
+            emb = list(sd["string_to_param"].values())[0]
+        elif len(sd) == 1:  # diffusers format: {token: tensor}
+            emb = list(sd.values())[0]
+        else:
+            raise ValueError(f"unrecognized textual-inversion format: {list(sd)[:4]}")
+        lora.load_textual_inversion(self.text_encoder, self.tokenizer, np.asarray(emb), token)
+        self.config = self.config.replace(text_encoder=self.text_encoder.config)
 
     def enable_freeu(self, s1: float = 0.9, s2: float = 0.2, b1: float = 1.2, b2: float = 1.4) -> None:
         """FreeU skip re-weighting on the UNet's up path (``VideoUNetConfig.
@@ -263,7 +447,11 @@ class I2VAdapterPipeline:
         ``step_fn(consts, latents, t, t_prev, generator=None, *,
             eta_noise=None) -> latents``: first-frame clamp, CFG-doubled
             UNet, guidance, DDIM update (with ``eta > 0`` the noise is
-            ``eta_noise`` when given, else drawn from the generator).
+            ``eta_noise`` when given, else drawn from the generator).  ``t``
+            and ``t_prev`` are host integers (the stepwise loop) or 0-d
+            int64 device tensors (``StepGraphs``' static timesteps: the
+            time embedding and the DDIM coefficients are then formed on the
+            device, with no host value inside the step).
         ``step_full_fn`` is ``step_fn`` that also returns the UNet's
         down-path features, ``step_cached_fn(consts, latents, t, t_prev,
         caches, ...)`` reuses them at the next timestep (``encoder_cache=2``),
@@ -291,6 +479,10 @@ class I2VAdapterPipeline:
         # anchored windows prepend the first frame: leave room under the cap
         window = min(pcfg.temporal_window, motion_cap - 1)
         stride = max(1, min(pcfg.temporal_stride, window - 1))
+        # made here, not per step: a step replayed from a CUDA graph holds no
+        # host-to-device copy
+        window_weights = window_weight_tensors(f, window, stride, dev, torch.float32) if use_tiling else None
+        device_schedule = make_schedule(cfg.scheduler, device=dev)
 
         def prep_fn(text_ids, cond_image, clip_image, generator=None, *,
                     posterior_noise=None, mask_uniform=None, prior_noise=None, init_latents=None):
@@ -333,10 +525,10 @@ class I2VAdapterPipeline:
             return latents, (cond_latents, text_states, image_embeds)
 
         def unet_eval(x, t, text_states, image_embeds, **kw):
-            return self.unet(
-                x.to(dtype), torch.full((x.shape[0],), float(t), device=dev), text_states, image_embeds,
-                enable_cross_frame_attn=has_condition, **kw,
-            )
+            ts = t.float().expand(x.shape[0]) if torch.is_tensor(t) else torch.full(
+                (x.shape[0],), float(t), device=dev)
+            return self.unet(x.to(dtype), ts, text_states, image_embeds, enable_cross_frame_attn=has_condition,
+                             **kw)
 
         def chunks(n):
             per = n // unet_chunk if unet_chunk > 1 and n % unet_chunk == 0 else n
@@ -362,19 +554,20 @@ class I2VAdapterPipeline:
         # the same, over the temporal windows of a clip past the motion cap
         def evaluate(x, t, text, img):
             if use_tiling:
-                return tiled_unet_call(lambda xw, anchored: unet_call(xw, t, text, img), x, window, stride)
+                return tiled_unet_call(lambda xw, anchored: unet_call(xw, t, text, img), x, window, stride,
+                                       weights=window_weights)
             return unet_call(x, t, text, img)
 
         def evaluate_full(x, t, text, img):
             if use_tiling:
                 return tiled_unet_call(lambda xw, anchored, cache: unet_full(xw, t, text, img), x,
-                                       window, stride, collect_caches=True)
+                                       window, stride, collect_caches=True, weights=window_weights)
             return unet_full(x, t, text, img)
 
         def evaluate_cached(x, t, text, img, caches):
             if use_tiling:
                 return tiled_unet_call(lambda xw, anchored, cache: unet_cached(xw, t, text, img, cache), x,
-                                       window, stride, caches=caches)
+                                       window, stride, caches=caches, weights=window_weights)
             return unet_cached(x, t, text, img, caches)
 
         def clamp(latents, consts):
@@ -394,10 +587,11 @@ class I2VAdapterPipeline:
                 eta_noise = None
             elif eta_noise is None:
                 eta_noise = torch.randn(latents.shape, generator=generator, device=dev)
-            return ddim_step(
-                schedule, noise_pred, torch.full((batch,), int(t)),
-                torch.full((batch,), int(tp)), latents, eta=pcfg.eta, noise=eta_noise,
-            )
+            if torch.is_tensor(t):  # device timesteps: the schedule's tables on the device too
+                sched, tv, tpv = device_schedule, t.expand(batch), tp.expand(batch)
+            else:
+                sched, tv, tpv = schedule, torch.full((batch,), int(t)), torch.full((batch,), int(tp))
+            return ddim_step(sched, noise_pred, tv, tpv, latents, eta=pcfg.eta, noise=eta_noise)
 
         def step_fn(consts, latents, t, tp, generator=None, *, eta_noise=None):
             latents = clamp(latents, consts)
@@ -450,15 +644,18 @@ class I2VAdapterPipeline:
     # The card's memory budgets, from chip_smoke.py's serve_heads line (its
     # "memory" record) on "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
     # --query-gpu=name,power.limit), serving default, bf16: 85.0 GB on the
-    # card, 4.49 GB of weights (I2VModelConfig()), one 512 px UNet
-    # evaluation 89.4 MB per frame-evaluation (linear from 32 to 576, no
-    # fixed part), one decoded 512 px frame 1.21 GB (linear from 8 to 48).
-    # 90 % of the card is planned for (the CUDA context, the allocator's
-    # fragmentation and the library workspaces take the rest); three
-    # quarters of what the weights leave go to one evaluation (604
-    # frame-evaluations at 512 px; 576 kept), the last quarter to
-    # encoder_cache=2's features (18 GB; 16 GB kept); the decode, which
-    # runs alone, gets all of it (59 frames at 512 px; 56 kept).
+    # card, 5.12 GB of weights (I2VModelConfig(), its int8 sites' quantised
+    # copies included), one 512 px UNet evaluation 89.4 MB per
+    # frame-evaluation (linear from 32 to 576, no fixed part), one decoded
+    # 512 px frame 1.21 GB (linear from 8 to 48).  90 % of the card is
+    # planned for (the CUDA context, the allocator's fragmentation and the
+    # library workspaces take the rest); three quarters of what the weights
+    # leave go to one evaluation (592 frame-evaluations at 512 px; 576
+    # kept), the last quarter to encoder_cache=2's features (17 GB; 16 GB
+    # kept); the decode, which runs alone, gets all of it (59 frames at
+    # 512 px; 56 kept).  Under dispatch='scan' the graphs' pool takes the
+    # eager step's place (it reserves 1.6-1.8x the step's allocation): a
+    # 'scan' request at the evaluation envelope reserved 57 % of the card.
     #
     # The single-card envelope: frame-evaluations x latent tokens that one
     # UNet evaluation may hold at once.
@@ -477,32 +674,102 @@ class I2VAdapterPipeline:
     # the card these budgets were measured on (named in their errors)
     MEMORY_BUDGET_CARD: str = "NVIDIA H100 80GB HBM3"
 
+    # dispatch='auto' takes the scan when the clip's UNet work (steps x
+    # frame-evaluations x latent tokens, every temporal window counted) is at
+    # most this: the JAX package's rule and constant, so that one request
+    # takes the same dispatch on both packages.
+    SCAN_DISPATCH_MAX_WORK: int = 8_000_000
+
+    def _resolve_dispatch(self, dispatch: str, callback, steps: int, batch: int, num_frames: int,
+                          window: Optional[int], use_cfg: bool, tokens: int) -> str:
+        """``'scan'`` or ``'stepwise'``, as the JAX ``__call__`` decides: a
+        callback forces ``'stepwise'``; ``'auto'`` compares the clip's UNet
+        work with ``SCAN_DISPATCH_MAX_WORK``."""
+        if callback is not None:
+            return "stepwise"
+        if dispatch != "auto":
+            return dispatch
+        if window is not None:
+            stride = max(1, min(self.pipe_config.temporal_stride, window - 1))
+            per_step_frames = sum((e - s) + (1 if s > 0 else 0)
+                                  for s, e in temporal_windows(num_frames, window, stride))
+        else:
+            per_step_frames = num_frames
+        work = steps * batch * per_step_frames * (2 if use_cfg else 1) * tokens
+        return "stepwise" if work > self.SCAN_DISPATCH_MAX_WORK else "scan"
+
     def _denoise(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None,
                  callback=None, callback_steps: int = 1):
-        """The denoise loop over ``parts`` (``_build_parts``' result), as the
-        JAX stepwise sampler drives its parts: with ``encoder_cache=2`` pairs
-        of a full and a cached step, an odd trailing step exact; otherwise
-        ``n_cfg`` CFG steps, then cond-only steps.  Each step's synchronised
-        time is appended to ``last_timings["step_ms"]``; ``callback(i, t,
-        latents)`` runs after every ``callback_steps``-th step."""
+        """The stepwise denoise loop over ``parts`` (``_build_parts``' result),
+        as the JAX stepwise sampler drives its parts, step by ``step_kinds``.
+        Each step's synchronised time is appended to
+        ``last_timings["step_ms"]``; ``callback(i, t, latents)`` runs after
+        every ``callback_steps``-th step."""
         _, step_fn, _, ts, prev, (step_full, step_cached, step_cond) = parts
-        n_pairs = len(ts) - len(ts) % 2 if encoder_cache > 1 else 0
+        fns = {"cfg": step_fn, "cond": step_cond}
         caches = None
         t1 = self._sync()
-        for i, (t, tp) in enumerate(zip(ts, prev)):
-            if i < n_pairs and i % 2 == 0:
+        for i, (kind, t, tp) in enumerate(zip(step_kinds(len(ts), encoder_cache, n_cfg), ts, prev)):
+            if kind == "full":
                 latents, caches = step_full(consts, latents, t, tp, generator=generator)
-            elif i < n_pairs:
+            elif kind == "cached":
                 latents, caches = step_cached(consts, latents, t, tp, caches, generator=generator), None
-            elif i < n_cfg:
-                latents = step_fn(consts, latents, t, tp, generator=generator)
             else:
-                latents = step_cond(consts, latents, t, tp, generator=generator)
+                latents = fns[kind](consts, latents, t, tp, generator=generator)
             t2 = self._sync()
             self.last_timings.setdefault("step_ms", []).append((t2 - t1) * 1e3)
             if callback is not None and i % callback_steps == 0:
                 callback(i, int(t), latents)
             t1 = self._sync()
+        return latents
+
+    def _denoise_scan(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None):
+        """The same loop from ``StepGraphs``, on a side stream of the card
+        (the current stream waits for it at the end).  Step times are CUDA
+        events read once after the loop (``last_timings["step_ms"]``); the
+        captures' host time goes to ``last_dispatch["capture_ms"]``, the
+        graphs' pool to ``last_dispatch["graph_pool_bytes"]``.  The graphs
+        and their pool are released before the decode."""
+        ts, prev = parts[3], parts[4]
+        kinds = step_kinds(len(ts), encoder_cache, n_cfg)
+        last_use = {kind: i for i, kind in enumerate(kinds)}
+        cuda = self.device.type == "cuda"
+        side = None
+        if cuda:
+            # blocks cached by earlier work (a previous clip's decode) go back
+            # to the card now, while it idles after prep: the graphs' pool is
+            # then made beside the eager steps' working set without emptying
+            # the cache at a capture, where it would stall the card
+            torch.cuda.empty_cache()
+            side = _scan_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        marks = []
+
+        def mark():
+            if not cuda:
+                return time.perf_counter()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+
+        loop = StepGraphs(parts, consts, latents, generator, self.pipe_config.eta)
+        with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+            for i, (kind, t, tp) in enumerate(zip(kinds, ts, prev)):
+                start = mark()
+                loop.step(kind, t, tp)
+                marks.append((start, mark()))
+                if last_use[kind] == i:
+                    loop.release(kind)
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            side.synchronize()
+            step_ms = [a.elapsed_time(b) for a, b in marks]
+        else:
+            step_ms = [(b - a) * 1e3 for a, b in marks]
+        latents = loop.latents
+        loop.close()
+        self.last_timings["step_ms"] = step_ms
+        self.last_dispatch.update(capture_ms=loop.capture_ms, graph_pool_bytes=loop.pool_bytes)
         return latents
 
     def _sync(self) -> float:
@@ -605,11 +872,14 @@ class I2VAdapterPipeline:
           reference's auto rule).
         * ``memory_unsafe=True`` skips the card's memory envelopes (the UNet's
           and the decode's) and the encoder-cache budget.
-        * ``dispatch``: ``'auto'`` and ``'stepwise'`` run the eager loop, one
-          device pass per denoise step (the JAX package's stepwise
-          dispatch); ``'scan'``, the whole clip as one fused dispatch, is
-          not ported yet (CUDA-graph capture) and raises
-          ``NotImplementedError``.
+        * ``dispatch``: ``'stepwise'`` runs the eager loop, one synchronised
+          device pass per denoise step; ``'scan'`` runs the loop from static
+          buffers, each step kind replayed from a CUDA graph with no host
+          sync (``StepGraphs``), equal to ``'stepwise'``; ``'auto'`` takes
+          ``'scan'`` when the clip's UNet work is at most
+          ``SCAN_DISPATCH_MAX_WORK`` eval-tokens and no callback is given,
+          as the JAX package decides.  ``last_dispatch["dispatch"]`` says
+          which ran.
         * ``encoder_cache=2``: every second denoise step reuses the previous
           step's UNet down-path features (pairs of a full and a cached step;
           an odd trailing step runs full).  ``cfg_cutoff`` in [0, 1]: the
@@ -628,10 +898,6 @@ class I2VAdapterPipeline:
             if dispatch == "scan":
                 raise ValueError("per-step callback requires stepwise dispatch (the fused scan runs "
                                  "the whole clip as one device program); pass dispatch='stepwise' or 'auto'")
-        if dispatch == "scan":
-            raise NotImplementedError(
-                "dispatch='scan' (the whole clip as one fused dispatch) is not ported yet "
-                "(ROADMAP: CUDA-graph capture); 'auto' and 'stepwise' run")
         if num_videos_per_prompt < 1:
             raise ValueError(f"num_videos_per_prompt must be >= 1, got {num_videos_per_prompt}")
         pcfg = self.pipe_config
@@ -694,6 +960,7 @@ class I2VAdapterPipeline:
                 frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
                 # decode_tiled's tiles are at most 64 latents a side
                 self._check_decode_envelope(frames, min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
+        dispatch = self._resolve_dispatch(dispatch, callback, steps, batch, num_frames, window, use_cfg, tokens)
         init_latents = None
         if latents is not None and not has_condition:
             lat_shape = (batch, num_frames, height // sf, width // sf, self.config.unet.in_channels)
@@ -723,12 +990,17 @@ class I2VAdapterPipeline:
             use_cfg, has_condition, decode_slice, vae_tiling, unet_chunk,
         )
         prep_fn, decode_fn, ts = parts[0], parts[2], parts[3]
+        self.prepare_int8()  # a no-op unless a weight changed since the last call
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         t0 = self._sync()
         latents, consts = prep_fn(text_ids, cond, clip_img, gen, init_latents=init_latents)
         self.last_timings = {"prep_ms": (self._sync() - t0) * 1e3, "step_ms": []}
-        latents = self._denoise(parts, consts, latents, encoder_cache, cfg_steps(cfg_cutoff, len(ts)),
-                                gen, callback, callback_steps)
+        self.last_dispatch = {"dispatch": dispatch}
+        n_cfg = cfg_steps(cfg_cutoff, len(ts))
+        if dispatch == "scan":
+            latents = self._denoise_scan(parts, consts, latents, encoder_cache, n_cfg, gen)
+        else:
+            latents = self._denoise(parts, consts, latents, encoder_cache, n_cfg, gen, callback, callback_steps)
         t1 = self._sync()
         if output_type == "latent":
             if has_condition:

@@ -18,9 +18,9 @@ restart it on a fresh device context.
 Request JSON fields (all but ``prompt`` + ``image`` optional):
   prompt, image (path), negative_prompt, num_frames, height, width,
   num_inference_steps, guidance_scale, frame_similarity_sample_ratio,
-  seed, fps, format ('gif' | 'mp4' | 'npy'), dispatch ('auto' and
-  'stepwise' run; 'scan' is refused), encoder_cache (1 or 2) and cfg_cutoff
-  (in [0, 1]).  A request over the card's memory envelope fails with the
+  seed, fps, format ('gif' | 'mp4' | 'npy'), dispatch ('auto',
+  'scan' or 'stepwise'), encoder_cache (1 or 2) and cfg_cutoff (in
+  [0, 1]).  A request over the card's memory envelope fails with the
   pipeline's ``ValueError`` before anything runs.
 
 Run: ``python -m i2v_adapter_tpu_torch.pipelines.serve

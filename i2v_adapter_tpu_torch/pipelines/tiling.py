@@ -36,8 +36,28 @@ def window_weights(window: int, overlap: int) -> np.ndarray:
     return w
 
 
+def window_weight_tensors(num_frames: int, window: int, stride: int, device, dtype) -> List[torch.Tensor]:
+    """Per window of ``temporal_windows(num_frames, window, stride)``, its
+    blend weights as a (1, frames, 1, 1, 1) tensor on ``device``: the ramps
+    of ``window_weights``, no fade-in at the clip's start and none out at
+    its end."""
+    windows = temporal_windows(num_frames, window, stride)
+    overlap = window - stride
+    base_w = window_weights(window, overlap)
+    out = []
+    for wi, (s, e) in enumerate(windows):
+        w = base_w.copy()
+        if wi == 0:
+            w[: max(overlap, 0)] = 1.0  # no fade-in at the clip start
+        if wi == len(windows) - 1:
+            tail = len(w) - max(overlap, 0)
+            w[tail:] = np.maximum(w[tail:], base_w[tail:])
+        out.append(torch.from_numpy(w).reshape(1, e - s, 1, 1, 1).to(device, dtype))
+    return out
+
+
 def tiled_unet_call(unet_apply, latents: torch.Tensor, window: int, stride: int, *,
-                    caches=None, collect_caches: bool = False):
+                    caches=None, collect_caches: bool = False, weights=None):
     """Blend ``unet_apply(x, anchored)`` over the temporal windows of
     ``latents`` (B, F, H, W, C; a CFG-doubled batch is fine).  An anchored
     window carries the clip's first frame in front, whose prediction is
@@ -47,13 +67,15 @@ def tiled_unet_call(unet_apply, latents: torch.Tensor, window: int, stride: int,
     independent UNet evaluation): ``collect_caches=True`` calls
     ``unet_apply(x, anchored, cache=None)`` for ``(pred, cache)`` and
     returns ``(blended, caches)``; ``caches=`` calls ``unet_apply(x,
-    anchored, cache=caches[i])`` for window ``i``."""
+    anchored, cache=caches[i])`` for window ``i``.  ``weights``: the
+    windows' ``window_weight_tensors``, made once by a caller that replays
+    the call from a CUDA graph (no host-to-device copy inside it)."""
     f = latents.shape[1]
     windows = temporal_windows(f, window, stride)
-    overlap = window - stride
+    if weights is None:
+        weights = window_weight_tensors(f, window, stride, latents.device, latents.dtype)
     acc = torch.zeros_like(latents)
     norm = torch.zeros((1, f, 1, 1, 1), dtype=latents.dtype, device=latents.device)
-    base_w = window_weights(window, overlap)
     out_caches = []
     for wi, (s, e) in enumerate(windows):
         chunk = latents[:, s:e]
@@ -68,15 +90,8 @@ def tiled_unet_call(unet_apply, latents: torch.Tensor, window: int, stride: int,
             pred = unet_apply(x, anchored)
         if anchored:
             pred = pred[:, 1:]
-        w = base_w.copy()
-        if wi == 0:
-            w[: max(overlap, 0)] = 1.0  # no fade-in at the clip start
-        if wi == len(windows) - 1:
-            tail = len(w) - max(overlap, 0)
-            w[tail:] = np.maximum(w[tail:], base_w[tail:])
-        wt = torch.from_numpy(w).reshape(1, e - s, 1, 1, 1).to(latents.device, latents.dtype)
-        acc[:, s:e] += pred * wt
-        norm[:, s:e] += wt
+        acc[:, s:e] += pred * weights[wi]
+        norm[:, s:e] += weights[wi]
     blended = acc / norm
     if collect_caches:
         return blended, tuple(out_caches)

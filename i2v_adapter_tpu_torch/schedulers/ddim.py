@@ -67,7 +67,11 @@ def ddim_step(
 ) -> torch.Tensor:
     """One x_t -> x_{t-dt} DDIM update in fp32; a negative
     ``prev_timestep`` selects final_alpha_cumprod.  ``eta > 0`` needs
-    ``noise`` (the caller draws it)."""
+    ``noise`` (the caller draws it).  The timesteps may be host values or
+    int64 tensors on the schedule's device: with the schedule on the card
+    and device timesteps (the scan dispatch's static buffers) nothing is
+    read from or copied to the host, so the update can be replayed from a
+    CUDA graph; the coefficients are the same table values either way."""
     dev = sample.device
     t = torch.as_tensor(timestep, dtype=torch.long)
     tp = torch.as_tensor(prev_timestep, dtype=torch.long)

@@ -5,13 +5,17 @@ of one training step.
     python -m i2v_adapter_tpu_torch.tools.profile_step --train   # training
     python -m i2v_adapter_tpu_torch.tools.profile_step --conv-impl pallas [--train]
     python -m i2v_adapter_tpu_torch.tools.profile_step --int8     # the serving default
+    python -m i2v_adapter_tpu_torch.tools.profile_step --int8 --dispatch scan   # a replayed step
 
 ``--conv-impl`` sets ``VideoUNetConfig.conv_impl`` of the profiled model
 (``pallas``: every resnet stage through the fused GroupNorm-apply + SiLU +
 3x3 conv kernel K4).  ``--int8`` serves with ``PipelineConfig.int8_conv``
 on, the serving default: the UNet's and the VAE decoder's convs in int8
 (the int8 3x3 conv kernel, K7 for the stride-2 downsamplers); without it
-the convs are exact.
+the convs are exact.  ``--dispatch scan`` profiles a denoise step replayed
+from the CUDA graph the scan dispatch captures (``StepGraphs``: the first
+step of the kind eager, the second captured and replayed, the third, a
+replay, profiled); the default profiles the stepwise loop's eager step.
 
 Serving builds the full-width (SD1.5) pipeline with seeded random weights
 on the GPU, serves one warm-up request, then profiles the three parts of a
@@ -137,6 +141,8 @@ def main(argv=None) -> int:
                     help="VideoUNetConfig.conv_impl of the profiled model")
     ap.add_argument("--int8", action="store_true",
                     help="serve with int8 convs (PipelineConfig.int8_conv, the serving default)")
+    ap.add_argument("--dispatch", default="stepwise", choices=["stepwise", "scan"],
+                    help="profile the eager step (stepwise) or a step replayed from its CUDA graph (scan)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -145,15 +151,16 @@ def main(argv=None) -> int:
     if args.train:
         profile_train(dev, args.conv_impl)
     else:
-        profile_serving(dev, args.conv_impl, args.int8)
+        profile_serving(dev, args.conv_impl, args.int8, args.dispatch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
     return 0
 
 
-def profile_serving(dev, conv_impl: str, int8: bool = False) -> None:
+def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "stepwise") -> None:
     from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import StepGraphs
     from i2v_adapter_tpu_torch.utils import image as image_utils
     from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 
@@ -165,10 +172,8 @@ def profile_serving(dev, conv_impl: str, int8: bool = False) -> None:
     image = np.random.default_rng(6).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
     pipe("a cat", condition_image=image, seed=0)  # warm-up: cuDNN plans, kernel builds
 
-    prep, step, decode, ts, prev, _ = pipe._build_parts(
-        1, FRAMES, SIZE, SIZE, STEPS, pcfg.frame_similarity_sample_ratio,
-        7.5, True, True,
-    )
+    parts = pipe._build_parts(1, FRAMES, SIZE, SIZE, STEPS, pcfg.frame_similarity_sample_ratio, 7.5, True, True)
+    prep, step, decode, ts, prev, _ = parts
     text_ids = pipe.tokenizer(["", "a cat"])
     cond = image_utils.preprocess_batch(image, SIZE, SIZE)
     clip = image_utils.clip_preprocess(image, model_cfg.image_encoder.image_size)[None]
@@ -178,15 +183,32 @@ def profile_serving(dev, conv_impl: str, int8: bool = False) -> None:
         def run_prep():
             state["latents"], state["consts"] = prep(text_ids, cond, clip, gen)
 
+        loop = side = None
+        if dispatch == "scan":  # the kind's eager step, its capture and first replay; then replays
+            run_prep()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            loop = StepGraphs(parts, state["consts"], state["latents"], gen)
+            with torch.cuda.stream(side):
+                loop.step("cfg", ts[0], prev[0])
+                loop.step("cfg", ts[1], prev[1])
+            torch.cuda.current_stream(dev).wait_stream(side)
+
         def run_step():
-            state["latents"] = step(state["consts"], state["latents"], ts[0], prev[0])
+            if loop is None:
+                state["latents"] = step(state["consts"], state["latents"], ts[0], prev[0])
+                return
+            with torch.cuda.stream(side):
+                loop.step("cfg", ts[2], prev[2])
+            torch.cuda.current_stream(dev).wait_stream(side)
 
         def run_decode():
             state["video"] = decode(state["consts"], state["latents"])
 
         for label, fn in (("prep", run_prep), ("denoise_step", run_step), ("decode", run_decode)):
             line = profile(fn, label)
-            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl, int8=int8)
+            line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl, int8=int8,
+                        dispatch=dispatch)
             print(json.dumps(line), flush=True)
 
 

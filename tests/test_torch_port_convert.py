@@ -51,6 +51,10 @@ JCFG, PCFG = j_tiny(), tiny_test_config()
 # tests/synth.py's weights are unscaled N(0, 1): the flash sites' logits
 # leave the static softmax offset's range, so runs use the exact softmax
 EXACT_PCFG = PCFG.replace(unet=PCFG.unet.replace(flash_static_max=0.0))
+# a full_face head carries 257 image tokens (its layout's count): the tiny
+# image encoder at 32 px in 2 px patches gives 16 x 16 + 1 of them
+FF_JCFG = JCFG.replace(image_encoder=JCFG.image_encoder.replace(image_size=32, patch_size=2))
+FF_PCFG = PCFG.replace(image_encoder=PCFG.image_encoder.replace(image_size=32, patch_size=2))
 MODULES = {"unet": VideoUNet, "vae": AutoencoderKL, "text_encoder": CLIPTextEncoder,
            "image_encoder": CLIPVisionEncoder}
 
@@ -244,6 +248,7 @@ def ckpt(tmp_path_factory):
     root = tmp_path_factory.mktemp("ckpt")
     synth.write_pretrained_dir(str(root / "sd"), np.random.default_rng(0))
     psynth.write_pretrained_dir(str(root / "half"), PCFG, dtype=np.float16, seed=4)
+    psynth.write_pretrained_dir(str(root / "ff"), FF_PCFG, seed=5)
     adapter = psynth.write_adapter_task(str(root / "checkpoint"), "task", PCFG)
     ips = {}
     for i, variant in enumerate(("plus", "full_face")):  # the tiny plus head: 6 x 12, depth 2
@@ -251,7 +256,8 @@ def ckpt(tmp_path_factory):
                                           depth=2)
         ips[variant] = str(root / f"ip-{variant}.bin")
         psynth.save_ip_adapter(ip_sd, ips[variant])
-    return {"dir": str(root / "sd"), "half": str(root / "half"), "adapter": adapter, "ip": ips}
+    return {"dir": str(root / "sd"), "half": str(root / "half"), "ff": str(root / "ff"), "adapter": adapter,
+            "ip": ips}
 
 
 PIPE_ARGS = dict(num_frames=2, height=32, width=32, num_inference_steps=2, blur_sigma=1.0)
@@ -267,12 +273,15 @@ def test_from_pretrained_matches_jax(ckpt, dtype, adapter, directory):
     bf16 under a bf16 pipeline and keeps an fp16 leaf in fp16; the port
     stores every leaf in the compute dtype, which for fp32 files is the same
     rounding (the 'half' case holds the port's rule).  'plus' and
-    'full_face' load the directory with such an IP-Adapter file."""
+    'full_face' load a directory with such an IP-Adapter file ('full_face'
+    one whose image encoder gives the head's 257 tokens)."""
     path = ckpt["adapter"] if adapter else None
     root, ip = (ckpt["dir"], ckpt["ip"][directory]) if directory in ckpt["ip"] else (ckpt[directory], None)
-    jpipe = JPipeline.from_pretrained(root, model_config=JCFG, pipeline_config=JPipelineConfig(dtype=dtype),
+    jcfg, pcfg = (FF_JCFG, FF_PCFG) if directory == "full_face" else (JCFG, PCFG)
+    root = ckpt["ff"] if directory == "full_face" else root
+    jpipe = JPipeline.from_pretrained(root, model_config=jcfg, pipeline_config=JPipelineConfig(dtype=dtype),
                                       i2v_adapter_path=path, ip_adapter_path=ip)
-    pipe = I2VAdapterPipeline.from_pretrained(root, model_config=PCFG, pipeline_config=PipelineConfig(dtype=dtype),
+    pipe = I2VAdapterPipeline.from_pretrained(root, model_config=pcfg, pipeline_config=PipelineConfig(dtype=dtype),
                                               i2v_adapter_path=path, ip_adapter_path=ip, device="cpu")
     assert pipe.config.unet.ip_variant == (directory if ip else "standard")
     torch_dtype = getattr(torch, dtype)

@@ -574,7 +574,7 @@ REFUSALS = {
     "decode_envelope": (dict(output_type="np"), ValueError, "decode envelope", "MAX_DECODE_TOKENS"),
     "callback_steps": (dict(callback=print, callback_steps=0), ValueError, "callback_steps", None),
     "callback_with_scan": (dict(callback=print, dispatch="scan"), ValueError, "stepwise", None),
-    "scan": (dict(dispatch="scan"), NotImplementedError, "dispatch='scan'", None),
+    "scan": (dict(dispatch="scan"), None, None, None),  # served now, equal to the stepwise loop
     "num_videos_per_prompt": (dict(num_videos_per_prompt=0), ValueError, "num_videos_per_prompt", None),
     "latents_shape": (dict(latents=np.zeros((1, 1, LAT, LAT, 4), np.float32)), ValueError, "latents shape", None),
 }
@@ -587,6 +587,12 @@ def test_call_refusals(models, tmp_path, monkeypatch, case):
     image = None if case == "latents_shape" else np.zeros((models["size"],) * 2 + (3,), np.uint8)
     if budget:
         monkeypatch.setattr(I2VAdapterPipeline, budget, 1)
+    if error is None:  # a request once refused, now served
+        got = pipe("a", condition_image=image, **{"output_type": "latent", **kwargs})
+        assert pipe.last_dispatch["dispatch"] == kwargs["dispatch"]
+        want = pipe("a", condition_image=image, output_type="latent", dispatch="stepwise")
+        np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(error, match=match):
         pipe("a", condition_image=image, **{"output_type": "latent", **kwargs})
 
@@ -617,7 +623,8 @@ def test_launch_derivation_of_new_evaluations(monkeypatch, case):
     an IP head of >= 128 tokens (the IP attention through K1 at every site)
     equal the wrapper calls of a tiny UNet evaluation; at SD1.5 width a
     full_face evaluation launches K1 46 times, a cached one K1 and K2 18
-    times and the int8 conv 31."""
+    times and the int8 conv 31 (and the weight quantiser none: the weights
+    are quantised once per load)."""
     from i2v_adapter_tpu_torch.models import layers as player
     from i2v_adapter_tpu_torch.ops import attention as A
 
@@ -654,4 +661,4 @@ def test_launch_derivation_of_new_evaluations(monkeypatch, case):
     assert chip_smoke.launches_per_unet_eval(full.unet, 64, True, ip_tokens=257) == (46, 30)
     assert chip_smoke.launches_per_unet_eval(full.unet, 64, True, cached=True) == (18, 18)
     assert chip_smoke.int8_launches(full, 64, cached=True)["per_eval"] == {
-        "int8_conv3x3_kernel": 31, "int8_matmul": 0, "quantize_weight": 31}
+        "int8_conv3x3_kernel": 31, "int8_matmul": 0, "quantize_weights": 0}

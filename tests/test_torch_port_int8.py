@@ -100,7 +100,7 @@ def test_int8_conv_matches_jax(stride, jpad, pad):
                              strides=(stride, stride), padding=jpad)
     I.reset_launch_counts()
     got = I.int8_conv(T(x), T(k), T(bias), stride=stride, padding=pad)
-    assert I.launch_counts() == {"int8_conv3x3_kernel": 0, "quantize_weight": 0}  # a CPU tensor launches nothing
+    assert I.launch_counts() == {"int8_conv3x3_kernel": 0, "quantize_weights": 0}  # a CPU tensor launches nothing
     assert got.shape == want.shape and got.dtype == torch.float32
     assert maxerr(got.numpy(), want) <= 1e-6
     # the quantiser: weights from the fp32 parameter, one activation scale

@@ -519,9 +519,58 @@ def test_quantize_weight_kernel_equals_plain_on_card(cuda_device, c, co, dtype, 
         kernel = kernel.permute(2, 3, 1, 0)
     else:
         kernel = (torch.randn(3, 3, c, co, generator=g, device=cuda_device) / (9 * c) ** 0.5).to(dtype)
-    before = Q.quantize_weight.launches
+    before = Q.quantize_weights.launches
     wq, ws = Q.quantize_weight(kernel)
-    assert Q.quantize_weight.launches == before + 1
+    assert Q.quantize_weights.launches == before + 1
     pq, ps = Q.quantize_weight_plain(kernel)
     assert wq.dtype == torch.int8 and wq.shape == (co, 3, 3, c) and ws.dtype == torch.float32
     assert torch.equal(wq, pq) and torch.equal(ws, ps)
+
+
+@pytest.mark.gpu
+def test_grouped_quantiser_equals_plain_on_card(cuda_device):
+    """Sites of several widths and both dtypes in one grouped launch, rows
+    read 16 bytes at a time and (C = 20 in bf16: 360-byte rows) one by one:
+    each site's int8 weights and scales equal to the plain version's."""
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shapes = [(320, 320, torch.bfloat16), (2560, 1280, torch.bfloat16), (136, 264, torch.bfloat16),
+              (20, 16, torch.bfloat16), (24, 40, torch.float32), (640, 320, torch.float32)]
+    kernels = [(torch.randn(co, c, 3, 3, generator=g, device=cuda_device) / (9 * c) ** 0.5).to(dt)
+               .permute(2, 3, 1, 0) for c, co, dt in shapes]
+    before = Q.quantize_weights.launches
+    got = Q.quantize_weights(kernels)
+    assert Q.quantize_weights.launches == before + 1
+    for k, (wq, ws) in zip(kernels, got):
+        pq, ps = Q.quantize_weight_plain(k)
+        assert torch.equal(wq, pq) and torch.equal(ws, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encoder_cache", [1, 2])
+def test_scan_dispatch_equals_stepwise_on_card(cuda_device, encoder_cache):
+    """A tiny fp32 pipeline at the serving default (K1, K2, the int8 conv
+    kernel and K7 inside the graphs): 'scan' captures each step kind used
+    twice or more once and replays it, equal bit for bit to 'stepwise', the
+    launch counts equal."""
+    import numpy as np
+
+    from i2v_adapter_tpu_torch.config import PipelineConfig, tiny_test_config
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
+
+    pc = PipelineConfig(num_frames=2, height=32, width=32, num_inference_steps=7, blur_sigma=1.0,
+                        dtype="float32")
+    pipe = random_pipeline(tiny_test_config(), pc, cuda_device, seed=2)
+    image = np.random.default_rng(0).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    outs, counts = {}, {}
+    for dispatch in ("stepwise", "scan"):
+        before = launches.snapshot()
+        outs[dispatch] = pipe("a cat", condition_image=image, seed=1, output_type="latent", dispatch=dispatch,
+                              encoder_cache=encoder_cache)
+        counts[dispatch] = launches.since(before)
+    assert pipe.last_dispatch["dispatch"] == "scan"
+    assert len(pipe.last_dispatch["capture_ms"]) == encoder_cache  # one graph per kind used twice or more
+    assert counts["scan"] == counts["stepwise"] and counts["scan"]["int8_conv3x3_kernel"] > 0
+    np.testing.assert_array_equal(outs["scan"], outs["stepwise"])

@@ -3,9 +3,9 @@ CLI, ``find_latest_epoch`` and the ``__call__`` serving options, at the tiny
 config on the CPU (2 frames, 32 px, 2 steps), mirroring
 ``tests/test_serve.py`` and ``tests/test_cli.py``.
 
-* the queue drains and isolates failures (a missing image, malformed JSON,
-  ``dispatch: "scan"``), ``encoder_cache: 2`` and ``dispatch: "stepwise"``
-  requests run, and outputs equal a direct call;
+* the queue drains and isolates failures (a missing image, malformed
+  JSON), ``encoder_cache: 2``, ``dispatch: "scan"`` and ``dispatch:
+  "stepwise"`` requests run, and outputs equal a direct call;
 * a request that runs out of device memory fails alone;
 * the per-request timeout fails a hanging request and recycles the worker;
 * the argparse surfaces equal the JAX package's (dests and defaults),
@@ -13,8 +13,8 @@ config on the CPU (2 frames, 32 px, 2 steps), mirroring
 * ``find_latest_epoch`` against JAX;
 * ``cli.main`` on a one-row CSV with an adapter task written by the port's
   writer produces the GIF;
-* ``__call__``: ``dispatch`` 'auto' / 'stepwise' run (equal), 'scan'
-  refused; ``encoder_cache`` / ``cfg_cutoff`` off runs, the approximations
+* ``__call__``: ``dispatch`` 'auto' / 'stepwise' / 'scan' run (equal);
+  ``encoder_cache`` / ``cfg_cutoff`` off runs, the approximations
   run (here one denoise step: ``encoder_cache=2``'s odd trailing step is the
   exact one, ``cfg_cutoff=0.5`` rounds to no CFG step), values outside the
   reference's domain ValueError.
@@ -86,7 +86,7 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
         "b_missing_image": {"prompt": "x", "image": str(tmp_path / "missing.png")},
         "c_malformed": "{not json",
         "d_encoder_cache": {"prompt": "a cat", "image": img, "seed": 3, "encoder_cache": 2, "format": "npy"},
-        "e_scan": {"prompt": "a cat", "image": img, "dispatch": "scan"},
+        "e_scan": {"prompt": "a cat", "image": img, "seed": 4, "dispatch": "scan", "format": "npy"},
         "f_stepwise": {"prompt": "a dog", "image": img, "seed": 4, "dispatch": "stepwise", "format": "npy"},
         "g_gif": {"prompt": "a dog", "image": img},
     })
@@ -99,8 +99,9 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
     np.testing.assert_array_equal(stepwise, pipe("a dog", condition_image=Image.open(img), seed=4))
     cached = np.load(os.path.join(out_dir, "d_encoder_cache.npy"))
     np.testing.assert_array_equal(cached, pipe("a cat", condition_image=Image.open(img), seed=3, encoder_cache=2))
-    for rid, error in (("b_missing_image", "FileNotFoundError"), ("c_malformed", "JSONDecodeError"),
-                       ("e_scan", "NotImplementedError: dispatch='scan'")):
+    scan = np.load(os.path.join(out_dir, "e_scan.npy"))
+    np.testing.assert_array_equal(scan, pipe("a cat", condition_image=Image.open(img), seed=4, dispatch="stepwise"))
+    for rid, error in (("b_missing_image", "FileNotFoundError"), ("c_malformed", "JSONDecodeError")):
         r = result(out_dir, rid)
         assert not r["ok"] and r["error"].startswith(error), (rid, r)
     assert result(out_dir, "g_gif")["ok"]
@@ -108,7 +109,7 @@ def test_serve_drains_queue_and_isolates_failures(setup, tmp_path):
         assert gif.n_frames == 2 and gif.size == (32, 32)
     assert sorted(os.listdir(req_dir)) == [
         "a_good.json.done", "b_missing_image.json.failed", "c_malformed.json.failed",
-        "d_encoder_cache.json.done", "e_scan.json.failed", "f_stepwise.json.done", "g_gif.json.done"]
+        "d_encoder_cache.json.done", "e_scan.json.done", "f_stepwise.json.done", "g_gif.json.done"]
 
 
 def test_serve_refuses_over_envelope_and_serves_on(setup, tmp_path):
@@ -249,7 +250,7 @@ def test_cli_writes_gif_with_adapter_task(setup, tmp_path):
 CALL_CASES = {
     "dispatch_auto": (dict(dispatch="auto"), "same"),
     "dispatch_stepwise": (dict(dispatch="stepwise"), "same"),
-    "dispatch_scan": (dict(dispatch="scan"), NotImplementedError),
+    "dispatch_scan": (dict(dispatch="scan"), "same"),
     "dispatch_unknown": (dict(dispatch="fused"), ValueError),
     "encoder_cache_off": (dict(encoder_cache=1), "same"),
     "encoder_cache_2": (dict(encoder_cache=2), "same"),  # one step: the trailing full step
