@@ -78,6 +78,22 @@ Phases, one JSON line each, in order:
                    request each, through the daemon's loop (``serve.serve``)
 9. ``cli``      -- ``pipelines.cli.main`` on a one-row CSV with the same task,
                    ``--no-int8_conv``, 5 steps: one GIF
+9b. ``driver``  -- ``training/driver.py``'s ``main`` on that directory at the
+                   reference training workload (config 4, EMA) over 12
+                   WebVid-layout clips (64 frames at 336 x 256, OpenCV's
+                   mp4v; the phase fails without OpenCV) decoded
+                   and preprocessed on the host: 6 steps with full-state
+                   saves at 3 and 6, the epoch's adapter checkpoint and a
+                   validation GIF; ``--resume_from_checkpoint latest`` for
+                   3 more steps, the restored state equal to the saved one
+                   bit for bit, its save asynchronous; the newest epoch
+                   checkpoint loaded by ``from_pretrained`` (its adapter
+                   equal to the trained EMA) and one 5-step request served;
+                   the final export read back; 2 steps of ``--train_mode
+                   t2i``.  Every train
+                   step's K1 / K2 / K3 launches equal the config's, no int8
+                   launch; step ms, the host's data wait, save bytes and
+                   seconds, the card's peak
 10. ``train``   -- the adapter training step at the reference workload
                    (``reference_train_config``: SD1.5 widths, 2 clips x 16
                    frames at 256 px, bf16 with
@@ -96,8 +112,9 @@ Phases, one JSON line each, in order:
                    per resnet conv per step (forward + recompute)
 13. ``int8_tool`` -- ``ops.profile_int8_dense`` at a cut list of its shapes
 
-The ``pretrained`` directory is written under ``chip_smoke_work/`` beside
-this script (git-ignored) and removed at the end.
+The ``pretrained`` directory, the clips and what the driver writes live
+under ``chip_smoke_work/`` beside this script (git-ignored), removed at
+the end.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then the per-kernel summary ``{"kernels": [...]}``, the nvidia-smi
 line and the result line ``{"ok": true, "device": {...}}``.  Any failure
@@ -364,6 +381,22 @@ def int8_launches(model_cfg, latent: int, cached: bool = False) -> dict:
     return {"per_eval": {"int8_conv3x3_kernel": convs, "int8_matmul": downs, "quantize_weights": 0},
             "per_decode": {"int8_conv3x3_kernel": dec, "int8_matmul": 0, "quantize_weights": 0},
             "per_load": {"int8_conv3x3_kernel": 0, "int8_matmul": 0, "quantize_weights": 1}}
+
+
+# the driver's validation: 25 steps at the serving default (int8 convs),
+# one clip per row of the eval CSV, once per validated epoch
+DRIVER_RESOLUTION = 256
+VALIDATION_STEPS = 25
+
+
+def validation_int8_launches(model_cfg, latent: int, clips: int = 1) -> dict:
+    """The int8 launches of one ``_run_validation`` of ``clips`` clips:
+    each clip's UNet evaluations and decode, and one weight quantiser
+    launch (the trained weights swapped in are a new weights version)."""
+    steps = clip_denoise_steps(VALIDATION_STEPS)
+    per = int8_launches(model_cfg, latent)
+    return {k: clips * (steps * per["per_eval"][k] + per["per_decode"][k]) + per["per_load"][k]
+            for k in per["per_eval"]}
 
 
 def request_launches(model_cfg, latent: int, steps: int, *, ip_tokens: int = 0, encoder_cache: int = 1,
@@ -701,7 +734,7 @@ def _conv_case(name, b, h, w, c, co, dev, iters, weight=0, step_weight=0, fused=
     return row, ok
 
 
-def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False):
+def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False, other_weights=None):
     """One K7 shape: the int32 result equal to the exact product (a float64
     matmul holds these sums exactly) with the weights in the K-major layout
     the kernel reads (as the serving path's quantised weights are stored)
@@ -710,7 +743,8 @@ def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False
     yardstick; the faster one is ``library_ms``; it needs M > 16 and K, N
     multiples of 8, else null).
     ``dequant`` also checks and times the dequantising epilogue (bf16 out,
-    as the int8 downsamplers run it) against its plain version."""
+    as the int8 downsamplers run it) against its plain version.
+    ``other_weights`` adds launch weights on other paths."""
     from i2v_adapter_tpu_torch.ops.profile_int8_dense import dequantize, int8_matmul, int8_matmul_plain
 
     g = torch.Generator(device=dev).manual_seed(m + 7 * k + 13 * n)
@@ -721,7 +755,7 @@ def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False
     got, got_rm = int8_matmul(xq, wq_km), int8_matmul(xq, wq)
     diff = max(float((a.double() - want.double()).abs().max()) for a in (got, got_rm))
     row = {"name": name, "m": m, "k": k, "n": n, "launches_per_tool_run": weight,
-           "launches_per_eval": eval_weight, "abs_err_int32": diff,
+           "launches_per_eval": eval_weight, **(other_weights or {}), "abs_err_int32": diff,
            "equal": bool(torch.equal(got, want) and torch.equal(got_rm, want))}
     row["ms"] = device_ms(lambda: int8_matmul(xq, wq_km), iters)
     row["rowmajor_ms"] = device_ms(lambda: int8_matmul(xq, wq), iters)
@@ -750,7 +784,7 @@ def _int8_case(name, m, k, n, dev, iters, weight=0, eval_weight=0, dequant=False
     return row, ok
 
 
-def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0):
+def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0, other_weights=None):
     """One int8 3x3 conv site, its weights a bf16 OIHW parameter as the
     serving pipeline stores them: the kernel's int32 sums equal to the plain
     version's (exact float64 products) from the same quantiser, its bf16
@@ -759,7 +793,8 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
     (abs-max and kernel; the weights quantised once per load), the plain
     version, and the exact path's bf16 cuDNN
     conv at the same site (context: no PyTorch call computes an int8 conv,
-    so ``library_ms`` is null)."""
+    so ``library_ms`` is null).  ``other_weights`` adds launch weights on
+    other paths."""
     import torch.nn.functional as F
 
     from i2v_adapter_tpu_torch.ops import int8 as I8
@@ -776,7 +811,7 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
     got = I8.int8_conv3x3_kernel(x, wq, xs, ws, bias).float()
     want = I8.dequantize(want32, xs, ws, bias, torch.bfloat16).float()
     row = {"name": name, "b": b, "h": h, "w": w, "c": c, "cout": co,
-           "launches_per_clip": clip_weight, "launches_per_eval": eval_weight,
+           "launches_per_clip": clip_weight, "launches_per_eval": eval_weight, **(other_weights or {}),
            "equal_int32": bool(torch.equal(got32, want32)),
            "abs_err_int32": float((got32.double() - want32.double()).abs().max()),
            "abs_err": abs_err(got, want),
@@ -963,24 +998,37 @@ def phase_kernels(dev, rehearse: bool):
         "int8 ")
     # K7 on the serving path: the int8 downsamplers' im2col products at 512 px
     # with CFG (32 frame-evals), M = 32*(H/2)^2, K = 9*C, N = Cout
+    # and at the driver's 256 px validation clip (the same CFG batch),
+    # weighted by launches per validation clip
     serving = I2VModelConfig().replace(unet=I2VModelConfig().unet.replace(int8_conv=True))
-    for h, c, co, cnt in int8_downsample_sites(serving.unet, 64):
-        m = 32 * (h // 2) ** 2
-        add("int8_matmul", _int8_case(f"downsample H{h} {m}x{9 * c}x{co}", m, 9 * c, co, dev, 5,
-                                      eval_weight=cnt, dequant=True), "int8 ")
-    # the int8 3x3 conv at every site of a 512 px, 16-frame CFG clip: the
-    # UNet's (32 frame-evals, once per denoise step) and the VAE decoder's
-    # (16 frames, once per clip), weighted by launches per clip
+    val_latent, val_steps = DRIVER_RESOLUTION // 8, clip_denoise_steps(VALIDATION_STEPS)
+    downs = {}
+    for latent, per_eval, per_val in ((64, 1, 0), (val_latent, 0, val_steps)):
+        for h, c, co, cnt in int8_downsample_sites(serving.unet, latent):
+            w = downs.setdefault((32 * (h // 2) ** 2, 9 * c, co), [0, 0, h])
+            w[0], w[1] = w[0] + per_eval * cnt, w[1] + per_val * cnt
+    for (m, k, n), (per_eval, per_val, h) in downs.items():
+        add("int8_matmul", _int8_case(f"downsample H{h} {m}x{k}x{n}", m, k, n, dev, 5, eval_weight=per_eval,
+                                      dequant=True, other_weights={"launches_per_validation_clip": per_val}),
+            "int8 ")
+    # the int8 3x3 conv at every site of a 512 px, 16-frame CFG clip and of
+    # the driver's 256 px validation clip: the UNet's (32 frame-evals, once
+    # per denoise step) and the VAE decoder's (16 frames, once per clip),
+    # weighted by launches per clip of each
     steps = clip_denoise_steps()
     sites = {}
-    for h, c, co, cnt in int8_unet_sites(serving.unet, 64):
-        sites[(32, h, c, co)] = [steps * cnt, cnt]
-    for h, c, co, cnt in int8_decoder_sites(serving.vae, 64):
-        sites.setdefault((16, h, c, co), [0, 0])[0] += cnt
-    for (b, h, c, co), (clip, per_eval) in sites.items():
+    for latent, clip_steps, key in ((64, steps, 0), (val_latent, val_steps, 2)):
+        for h, c, co, cnt in int8_unet_sites(serving.unet, latent):
+            w = sites.setdefault((32, h, c, co), [0, 0, 0])
+            w[key] += clip_steps * cnt
+            w[1] += cnt if key == 0 else 0
+        for h, c, co, cnt in int8_decoder_sites(serving.vae, latent):
+            sites.setdefault((16, h, c, co), [0, 0, 0])[key] += cnt
+    for (b, h, c, co), (clip, per_eval, per_val) in sites.items():
         part = "unet" if b == 32 else "decoder"
-        add("int8_conv3x3_kernel", _int8_conv_case(f"{part} H{h} {c}->{co}", b, h, h, c, co, dev,
-                                                   3 if h >= 256 else 5, clip, per_eval), "int8 conv ")
+        add("int8_conv3x3_kernel", _int8_conv_case(
+            f"{part} H{h} {c}->{co}", b, h, h, c, co, dev, 3 if h >= 256 else 5, clip, per_eval,
+            other_weights={"launches_per_validation_clip": per_val}), "int8 conv ")
     # the grouped weight quantiser: every int8 site of the serving default in
     # one launch, once per load (none per clip)
     add("quantize_weights", _quantize_weights_case("every int8 site of I2VModelConfig()",
@@ -2118,6 +2166,290 @@ def phase_cli(model_cfg, dev, rehearse: bool, ckpt: dict):
     return counts
 
 
+# the driver phase: clips written in the WebVid layout, trained on through
+# training/driver.py and served from what it wrote
+DRIVER_TASK = "driver_task"
+DRIVER_CLIPS = 12  # 6 steps of 2 clips: the first run is one epoch
+DRIVER_STEPS = 6
+DRIVER_CHECKPOINTING_STEPS = 3
+DRIVER_RESUME_STEPS = 3
+DRIVER_T2I_STEPS = 2
+
+
+def _write_clips(folder: str, n: int, frames: int, width: int, height: int) -> dict:
+    """``n`` clips of ``frames`` random frames at ``width`` x ``height`` as
+    ``<folder>/p<i % 3>/v<i>.mp4`` (OpenCV's mp4v writer) and a CSV of
+    them; the dataset decodes them with OpenCV, so a host without it or its
+    mp4 writer fails the phase here."""
+    import cv2
+
+    rng = np.random.default_rng(21)
+    rows = []
+    for i in range(n):
+        page, vid = f"p{i % 3}", f"v{i}"
+        os.makedirs(os.path.join(folder, page), exist_ok=True)
+        # a moving gradient under noise, so the resize and the flip see structure
+        base = np.linspace(0, 255, width, dtype=np.float32)[None, :, None]
+        path = os.path.join(folder, page, vid + ".mp4")
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (width, height))
+        if not w.isOpened():
+            raise RuntimeError(f"OpenCV {cv2.__version__} cannot write mp4v to {path}")
+        for t in range(frames):
+            w.write(np.clip(np.roll(base, 3 * t, axis=1) + rng.normal(0, 24, (height, width, 3)), 0, 255)
+                    .astype(np.uint8))
+        w.release()
+        rows.append(f"{vid},clip number {i},{page}")
+    csv_path = os.path.join(folder, "train.csv")
+    with open(csv_path, "w") as f:
+        f.write("videoid,name,page_dir\n" + "\n".join(rows) + "\n")
+    return {"csv": csv_path, "cv2": cv2.__version__}
+
+
+@contextlib.contextmanager
+def _driver_probes(per_step: list, snapshots: dict, checks: dict):
+    """Around the driver: launches read before and after every train step
+    (``per_step``); the train state copied to the host after each full-state
+    save (``snapshots``, the last one kept) and held against the state
+    right after a restore, every leaf bit for bit (``checks``, with the
+    restore's and each validation's seconds, and in ``probe_s`` the seconds
+    of each copy and comparison, which are the smoke's, not the driver's)."""
+    from i2v_adapter_tpu_torch.training import checkpoint as ckpt_mod
+    from i2v_adapter_tpu_torch.training import driver
+
+    real_make, real_save, real_restore, real_validation = (
+        driver.make_train_step, ckpt_mod.TrainCheckpointer.save, ckpt_mod.TrainCheckpointer.restore,
+        driver._run_validation)
+
+    def make_train_step(*a, **k):
+        step_fn = real_make(*a, **k)
+
+        def counted(state, batch, *rest, **kw):
+            before = launch_counts()
+            out = step_fn(state, batch, *rest, **kw)
+            after = launch_counts()
+            per_step.append({name: after[name] - before[name] for name in after})
+            return out
+        return counted
+
+    def save(self, step, state):
+        real_save(self, step, state)
+        t0 = time.perf_counter()
+        snapshots.clear()
+        snapshots.update({k: v.to("cpu", copy=True) for k, v in ckpt_mod.train_state_tensors(state).items()})
+        snapshots["counters"] = dict(ckpt_mod._counters(state))
+        checks.setdefault("probe_s", []).append(time.perf_counter() - t0)
+
+    def restore(self, state, step=None):
+        t0 = time.perf_counter()
+        out = real_restore(self, state, step)
+        t1 = time.perf_counter()
+        checks["restore_s"] = t1 - t0
+        live = ckpt_mod.train_state_tensors(state)
+        want = {k: v for k, v in snapshots.items() if k != "counters"}
+        checks["restored_leaves"] = len(live)
+        checks["restored_mismatched"] = sorted(
+            set(want) ^ set(live) | {k for k in live if k in want and not torch.equal(live[k].cpu(), want[k])})
+        checks["restored_counters_equal"] = ckpt_mod._counters(state) == snapshots.get("counters")
+        checks.setdefault("probe_s", []).append(time.perf_counter() - t1)
+        return out
+
+    def validation(*a, **k):
+        t0 = time.perf_counter()
+        out = real_validation(*a, **k)
+        checks.setdefault("validation_s", []).append(time.perf_counter() - t0)
+        return out
+
+    driver.make_train_step, driver._run_validation = make_train_step, validation
+    ckpt_mod.TrainCheckpointer.save, ckpt_mod.TrainCheckpointer.restore = save, restore
+    try:
+        yield
+    finally:
+        driver.make_train_step, driver._run_validation = real_make, real_validation
+        ckpt_mod.TrainCheckpointer.save, ckpt_mod.TrainCheckpointer.restore = real_save, real_restore
+
+
+def _driver_run(argv, model_cfg, rehearse: bool, per_step: list, checks: dict) -> dict:
+    """``driver.main(argv)`` with the launch counts set to 0 just before it
+    and read just after; its result, counts, seconds (with and without the
+    probes' copies and comparisons) and the card's peak."""
+    import gc
+
+    from i2v_adapter_tpu_torch.training import driver
+
+    gc.collect()
+    if not rehearse:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    del per_step[:]
+    probe_before = sum(checks.get("probe_s", []))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = driver.main(argv, model_config=model_cfg)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    probe_s = sum(checks.get("probe_s", [])) - probe_before
+    return {"result": result, "launches": counts, "seconds": seconds, "probe_s": probe_s,
+            "seconds_without_probes": seconds - probe_s, "per_step": list(per_step),
+            "gpu_peak_memory_gb": None if rehearse else torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _run_summary(run: dict, expected_step: dict) -> dict:
+    r = run["result"]
+    return {
+        "seconds": run["seconds"], "probe_s": run["probe_s"], "seconds_without_probes": run["seconds_without_probes"],
+        "global_step": r["global_step"], "losses": r["losses"],
+        "grad_norms": r["grad_norms"], "skipped_nonfinite": sum(r["skipped_nonfinite"]),
+        "step_ms": [s * 1e3 for s in r["step_s"]],
+        "step_ms_after_first": _spread([s * 1e3 for s in r["step_s"][1:]]),
+        "data_wait_ms": [s * 1e3 for s in r["data_wait_s"]],
+        "data_wait_ms_after_first": _spread([s * 1e3 for s in r["data_wait_s"][1:]]),
+        "state_saves": r["state_saves"], "gpu_peak_memory_gb": run["gpu_peak_memory_gb"],
+        "launches": run["launches"], "launches_per_step": run["per_step"],
+        "expected_launches_per_step": expected_step,
+        "launches_per_step_as_derived": all(s == expected_step for s in run["per_step"]),
+    }
+
+
+def _spread(xs) -> dict:
+    return {"n": len(xs), "mean": float(np.mean(xs)) if xs else None,
+            "min": float(np.min(xs)) if xs else None, "max": float(np.max(xs)) if xs else None}
+
+
+def phase_driver(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """``training/driver.py``'s ``main`` on the full-width directory at the
+    reference training workload (2 clips x 16 frames at 256 px, bf16, frozen
+    weights in bf16, activation checkpointing, AdamW, EMA) over clips
+    written in the WebVid layout (64 frames at 336 x 256, stride 4): 6
+    steps (one epoch) with full-state saves at steps 3 and 6, the epoch's
+    adapter checkpoint and a validation sample; then
+    ``--resume_from_checkpoint latest`` for 3 more steps, the restored
+    state equal to the saved one bit for bit, its save at step 9
+    asynchronous; the newest epoch checkpoint loaded by ``from_pretrained``
+    at the serving default (its adapter equal to the trained EMA in bf16)
+    and one 5-step request served; ``load_pipeline_params`` of the final
+    export; then 2 steps of ``--train_mode t2i``.  Every train step's K1,
+    K2 and K3 launches are held to ``launches_per_train_step``, with no
+    int8 launch.  Returns the launches of the i2v runs and of the t2i run."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig, reference_train_config
+    from i2v_adapter_tpu_torch.data import native
+    from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
+    from i2v_adapter_tpu_torch.pipelines.serve import adapter_checkpoint
+    from i2v_adapter_tpu_torch.training.checkpoint import load_pipeline_params
+    from i2v_adapter_tpu_torch.utils import convert
+    from i2v_adapter_tpu_torch.utils.safetensors_io import load_file
+
+    tcfg = reference_train_config()
+    size, frames, clip_w, clip_h, clip_frames = DRIVER_RESOLUTION, tcfg.num_frames, 336, 256, 64
+    if rehearse:
+        size, frames, clip_w, clip_h, clip_frames = 32, 4, 48, 40, 16
+    folder, out_dir = os.path.join(WORK_DIR, "webvid"), os.path.join(WORK_DIR, "train_out")
+    data = _write_clips(folder, DRIVER_CLIPS, clip_frames, clip_w, clip_h)
+    eval_csv = os.path.join(WORK_DIR, "train_eval.csv")
+    with open(eval_csv, "w") as f:
+        f.write(f"prompt,image_path\na moving gradient,{_condition_image(size)}\n")
+    common = ["--pretrained_model_path", ckpt["root"], "--csv_path", data["csv"], "--video_folder", folder,
+              "--output_dir", out_dir, "--resolution", str(size), "--n_frames", str(frames),
+              "--train_batch_size", str(tcfg.train_batch_size), "--gradient_accumulation_steps", "1",
+              "--mixed_precision", "none" if rehearse else "bfloat16", "--freeze_dtype", "bfloat16",
+              "--gradient_checkpointing", "--num_workers", "4", "--seed", "0"]
+    if rehearse:
+        common += ["--device", "cpu"]
+    i2v = common + ["--task_name", DRIVER_TASK, "--train_mode", "i2v", "--use_ema",
+                    "--checkpointing_steps", str(DRIVER_CHECKPOINTING_STEPS), "--checkpoints_total_limit", "2",
+                    "--checkpoint_epoch", "1"]
+    latent = size // model_cfg.vae.spatial_scale_factor
+    zero = expected_counts()
+    want_i2v = zero if rehearse else expected_counts(**launches_per_train_step(model_cfg.unet, latent, tcfg))
+    t2i_cfg = model_cfg.replace(unet=model_cfg.unet.replace(
+        use_motion_modules=False, use_i2v_adapter=False, use_ip_adapter=False))
+    want_t2i = zero if rehearse else expected_counts(**launches_per_train_step(
+        t2i_cfg.unet, latent, tcfg.replace(train_mode="t2i")))
+
+    per_step, snapshots, checks, failed = [], {}, {}, []
+    with _driver_probes(per_step, snapshots, checks):
+        first = _driver_run(i2v + ["--max_train_steps", str(DRIVER_STEPS), "--validation_epoch", "1",
+                                   "--eval_csv_path", eval_csv], model_cfg, rehearse, per_step, checks)
+        resumed = _driver_run(i2v + ["--max_train_steps", str(DRIVER_STEPS + DRIVER_RESUME_STEPS),
+                                     "--resume_from_checkpoint", "latest", "--async_checkpoint"],
+                              model_cfg, rehearse, per_step, checks)
+        t2i = _driver_run(common + ["--task_name", "driver_t2i", "--train_mode", "t2i", "--checkpoint_epoch", "2",
+                                    "--max_train_steps", str(DRIVER_T2I_STEPS)], model_cfg, rehearse, per_step, checks)
+    snapshots.clear()
+    task_dir = os.path.join(out_dir, DRIVER_TASK)
+    gif = os.path.join(task_dir, "samples_epoch_1", "sample_0_0.gif")
+
+    # serve what was trained: the newest epoch checkpoint at the serving default
+    adapter = adapter_checkpoint(out_dir, DRIVER_TASK, None)
+    pipe = I2VAdapterPipeline.from_pretrained(ckpt["root"], model_config=model_cfg, pipeline_config=PipelineConfig(),
+                                              i2v_adapter_path=adapter, device=dev)
+    state_file = os.path.join(task_dir, "state", f"step_{DRIVER_STEPS + DRIVER_RESUME_STEPS}.safetensors")
+    ema = {k[len("ema/"):]: v for k, v in load_file(state_file).items() if k.startswith("ema/")}
+    want = convert.extract_i2v_adapter(convert._unflatten(ema))
+    served = {n: p.detach() for n, p in pipe.unet.named_parameters() if ".i2v_adapter." in n}
+    got = convert.extract_i2v_adapter(convert.to_flax_tree(pipe.unet, served))
+    # the trained leaves (to_q, to_out); the adapter's K / V stay tied to attn1
+    adapter_mismatched = sorted(k for k in want if k not in got or not np.array_equal(
+        got[k], torch.from_numpy(want[k]).to(pipe.dtype).float().numpy()))
+    t0 = time.perf_counter()
+    from PIL import Image
+
+    video = pipe("a moving gradient", condition_image=Image.open(_condition_image(size)), num_frames=frames,
+                 height=size, width=size, num_inference_steps=5, seed=0)
+    request_s = time.perf_counter() - t0
+    del pipe, served
+    exported = load_pipeline_params(os.path.join(task_dir, "pipeline"))
+    export_leaves = {name: len(convert.flatten_tree(tree)) for name, tree in exported.items()}
+    del exported
+
+    runs = {"i2v": _run_summary(first, want_i2v), "resumed": _run_summary(resumed, want_i2v),
+            "t2i": _run_summary(t2i, want_t2i)}
+    line = {"phase": "driver", "clips": DRIVER_CLIPS, "clip_frames": clip_frames, "clip_size": [clip_w, clip_h],
+            "decode": "cv2", "cv2": data["cv2"],
+            "preprocess": "native" if native.available() else "numpy", "runs": runs,
+            "restore": {k: v for k, v in checks.items() if k not in ("validation_s", "probe_s")},
+            "probe_s": checks.get("probe_s"),
+            "validation_s": checks.get("validation_s"), "validation_gif": os.path.exists(gif),
+            "served_adapter": adapter, "served_adapter_leaves": len(want),
+            "served_adapter_mismatched": adapter_mismatched, "served_request_s": request_s,
+            "served_shape": list(video.shape), "served_range": [int(video.min()), int(video.max())],
+            "export_leaves": export_leaves}
+    emit(line)
+    for name, run in runs.items():
+        n = {"i2v": DRIVER_STEPS, "resumed": DRIVER_RESUME_STEPS, "t2i": DRIVER_T2I_STEPS}[name]
+        if len(run["losses"]) != n:
+            failed.append(f"{name}: {len(run['losses'])} steps, not {n}")
+        if not all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]) or run["skipped_nonfinite"]:
+            failed.append(f"{name}: losses {run['losses']}, grad norms {run['grad_norms']}")
+        if not run["launches_per_step_as_derived"]:
+            failed.append(f"{name}: launches per step {run['launches_per_step']} != {run['expected_launches_per_step']}")
+    # the int8 launches: the first run's validation clip only (the shapes
+    # phase_kernels holds against their plain versions), none elsewhere
+    int8_names = ("int8_conv3x3_kernel", "int8_matmul", "quantize_weights")
+    want_val = {k: 0 for k in int8_names} if rehearse else validation_int8_launches(model_cfg, latent)
+    for name, want_int8 in (("i2v", want_val), ("resumed", {k: 0 for k in int8_names}),
+                            ("t2i", {k: 0 for k in int8_names})):
+        got_int8 = {k: runs[name]["launches"][k] for k in int8_names}
+        if got_int8 != want_int8:
+            failed.append(f"{name}: int8 launches {got_int8} != {want_int8}")
+    if runs["resumed"]["global_step"] != DRIVER_STEPS + DRIVER_RESUME_STEPS:
+        failed.append(f"resumed: global step {runs['resumed']['global_step']}")
+    if checks.get("restored_mismatched") != [] or not checks.get("restored_counters_equal"):
+        failed.append(f"restore: {checks}")
+    if [s["step"] for s in runs["i2v"]["state_saves"]] != [3, 6]:
+        failed.append(f"state saves {runs['i2v']['state_saves']}")
+    if not line["validation_gif"] or adapter is None or adapter_mismatched or not want:
+        failed.append(f"served: gif {line['validation_gif']}, adapter {adapter}, mismatched {adapter_mismatched[:4]}")
+    if line["served_shape"] != [1, frames, size, size, 3] or not line["served_range"][1] > line["served_range"][0]:
+        failed.append(f"served request: {line['served_shape']} {line['served_range']}")
+    want_models = {"unet", "vae", "text_encoder", "image_encoder"}
+    if set(export_leaves) != want_models:
+        failed.append(f"export: {export_leaves}")
+    if failed:
+        raise AssertionError(f"driver: {failed}")
+    i2v_counts = {k: first["launches"][k] + resumed["launches"][k] for k in first["launches"]}
+    return i2v_counts, t2i["launches"]
+
+
 def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase: str = "train",
                 first_loss=None):
     """The reference training workload at full width (tiny in rehearsal):
@@ -2313,15 +2645,16 @@ CSRC = "i2v_adapter_tpu_torch/csrc/"
 SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
-     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "driver_t2i", "train",
+      "train_pallas"),
      "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
-     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "train", "train_pallas"),
+     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "train", "train_pallas"),
      "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
-     ("train", "train_pallas"), "launches_per_step"),
+     ("driver", "driver_t2i", "train", "train_pallas"), "launches_per_step"),
     ("conv3x3_kernel", "conv3x3_kernel", "conv3x3_kernel", CSRC + "conv3x3.cu",
      "i2v_adapter_tpu/ops/conv3x3.py:44", ("pipeline_pallas", "scan", "train_pallas"), "launches_per_eval"),
     ("flash_attention[transposed_io=False]", "flash_attention_row_major", "flash_attention",
@@ -2332,12 +2665,12 @@ SUMMARY = (
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
      "i2v_adapter_tpu/ops/profile_int8_dense.py:103",
-     ("pipeline_int8", "scan", "serve", "serve_heads", "int8_tool"), "launches_per_eval"),
+     ("pipeline_int8", "scan", "serve", "serve_heads", "driver", "int8_tool"), "launches_per_eval"),
     ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "scan", "serve", "serve_heads"),
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "scan", "serve", "serve_heads", "driver"),
      "launches_per_clip"),
     ("quantize_weights", "quantize_weights", "quantize_weights", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "scan", "serve", "serve_heads"),
+     "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "scan", "serve", "serve_heads", "driver"),
      "launches_per_load"),
 )
 
@@ -2349,7 +2682,9 @@ def summary(rows, paths) -> dict:
     K3, per evaluation for K7's downsample shapes, per 512 px clip for the
     int8 conv); where a kernel also runs elsewhere, the same means over
     those shapes: the training step's for K2, K3 and K4 (``train_ms``,
-    weights: launches per step) and the int8 tool's for K7 (``tool_ms``).
+    weights: launches per step), the int8 tool's for K7 (``tool_ms``) and
+    the driver's 256 px validation clip's for K7 and the int8 conv
+    (``validation_ms``, weights: launches per validation clip).
     ``library_ms`` is null where no PyTorch call computes the function."""
     out = []
     for name, key, counter, source, replaces, on_paths, weight_key in SUMMARY:
@@ -2372,7 +2707,8 @@ def summary(rows, paths) -> dict:
             "bound_by": "bytes" if bytes_side * 2 > w else "operations",
             "library_ms": m["library_ms"],
         })
-        for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run")):
+        for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run"),
+                              ("validation", "launches_per_validation_clip")):
             if other != weight_key and any(r.get(other, 0) > 0 for r in cases):
                 extra = means(other, ("ms", "bound_ms", "library_ms"))[0]
                 out[-1].update({f"{prefix}_{k}": v for k, v in extra.items()})
@@ -2417,6 +2753,7 @@ def main(argv=None) -> int:
         serve_counts = phase_serve(model_cfg, dev, rehearse, ckpt)
         heads_counts = phase_serve_heads(model_cfg, dev, rehearse, ckpt)
         cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
+        driver_counts, driver_t2i_counts = phase_driver(model_cfg, dev, rehearse, ckpt)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     train_state, batch, step_fn, train_counts, first_loss = phase_train(model_cfg, dev, rehearse)
@@ -2430,7 +2767,8 @@ def main(argv=None) -> int:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
             "scan": scan_counts,
-            "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "train": train_counts,
+            "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "driver": driver_counts,
+            "driver_t2i": driver_t2i_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
         idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]

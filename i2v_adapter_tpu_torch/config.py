@@ -252,7 +252,7 @@ class OptimizerConfig(_ConfigBase):
     learning_rate: float = 1e-4
     lr_scheduler: str = "constant"  # constant|linear|cosine|constant_with_warmup
     lr_warmup_steps: int = 500
-    # 'adamw' or 'adafactor' (the latter is not ported: make_optimizer raises)
+    # 'adamw' or 'adafactor'
     optimizer: str = "adamw"
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999

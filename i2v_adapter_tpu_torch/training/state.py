@@ -8,13 +8,15 @@ the parameter tree in two, the port sets ``requires_grad`` and keeps the two
 name lists; autograd then computes no gradient for frozen weights.
 
 ``make_optimizer`` reproduces optax, not ``torch.optim``: the JAX step's
-``chain(clip_by_global_norm, adamw)``, wrapped in ``MultiSteps`` when
-gradients accumulate, step for step (see ``Optimizer``).
+``chain(clip_by_global_norm, adamw)`` or ``chain(clip_by_global_norm,
+adafactor)``, wrapped in ``MultiSteps`` when gradients accumulate, step for
+step (see ``Optimizer``).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from i2v_adapter_tpu_torch.config import OptimizerConfig, TrainConfig
+from i2v_adapter_tpu_torch.utils.convert import flax_layouts
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,19 +107,51 @@ def make_lr_schedule(config: OptimizerConfig, total_steps: int) -> Callable[[int
 
 @dataclass
 class OptState:
-    """AdamW moments and counts, plus the MultiSteps accumulator."""
+    """The optimizer's state: AdamW's moments (``mu``, ``nu``, in each
+    parameter's layout) or Adafactor's second-moment statistics (``v_row``
+    / ``v_col`` for factored leaves, ``v`` for the others, in the Flax
+    layout, as optax keeps them), the inner update count, and the
+    MultiSteps accumulator with its counters."""
 
-    count: int = 0  # inner (clip + AdamW) updates made
+    count: int = 0  # inner (clip + AdamW / Adafactor) updates made
     mu: Params = field(default_factory=dict)
     nu: Params = field(default_factory=dict)
+    v_row: Params = field(default_factory=dict)
+    v_col: Params = field(default_factory=dict)
+    v: Params = field(default_factory=dict)
     mini_step: int = 0  # calls since the last inner update (accumulation)
     gradient_step: int = 0
     acc: Params = field(default_factory=dict)
 
 
+# Adafactor's settings in the JAX package's make_optimizer (optax's
+# adafactor defaults with no parameter scaling, clipping, momentum or decay)
+ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the (second largest, largest) axes of a
+    shape whose second largest axis has at least 128 entries, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _inverse(perm: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(i) for i in np.argsort(perm))
+
+
 class Optimizer:
-    """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule))``,
-    in ``optax.MultiSteps(k)`` when ``k = gradient_accumulation_steps > 1``.
+    """``optax.chain(clip_by_global_norm(max_grad_norm), inner)`` with
+    ``inner`` the JAX package's ``adamw(schedule, ...)`` or
+    ``adafactor(schedule, multiply_by_parameter_scale=False,
+    clipping_threshold=None, momentum=None, weight_decay_rate=None)``, in
+    ``optax.MultiSteps(k)`` when ``k = gradient_accumulation_steps > 1``.
 
     Differences from ``torch.optim`` it keeps on purpose:
 
@@ -125,25 +160,58 @@ class Optimizer:
     * AdamW is optax's: bias-corrected moments, ``eps`` outside the square
       root, decay added as ``wd * p`` on the old parameters, the update
       scaled by ``-lr(count)`` with ``count`` the inner updates made so far;
+    * Adafactor is optax's ``scale_by_factored_rms``: decay ``1 - (count +
+      1) ** -0.8``, ``eps = 1e-30`` added to the squared gradient, factored
+      row / column statistics for leaves whose two largest axes (of the
+      Flax layout: ``layouts`` maps a parameter to the permutation that
+      gives it) both hold at least 128 entries, a full statistic otherwise;
+      the update ``-lr(count) * g / sqrt(v)``;
     * accumulation keeps the running mean of the gradients
       (``acc += (g - acc) / (n + 1)``) and makes the inner update on the
-      k-th call; the calls in between return zeros and leave the moments.
+      k-th call; the calls in between return zeros and leave the state.
 
     ``update`` mutates ``state`` in place (the port keeps one copy of the
     moments) and returns the updates to add to the parameters."""
 
     def __init__(self, config: TrainConfig, total_steps: int):
         oc = config.optimizer
-        if oc.optimizer != "adamw":
-            raise NotImplementedError(
-                f"not ported yet: optimizer={oc.optimizer!r} (ROADMAP: Adafactor)")
         self.config = oc
+        self.kind = oc.optimizer
         self.schedule = make_lr_schedule(oc, total_steps)
         self.every_k = config.gradient_accumulation_steps
+        self.layouts: Dict[str, Tuple[int, ...]] = {}
 
-    def init(self, params: Params) -> OptState:
+    def init(self, params: Params, layouts: Optional[Dict[str, Tuple[int, ...]]] = None) -> OptState:
+        """A zero state for ``params``; ``layouts`` maps a parameter name to
+        the permutation that turns it into its Flax layout
+        (``utils.convert.flax_layouts``).  Adafactor needs it: it factors
+        in that layout, as optax does on the JAX tree, and a statistic
+        factored in the PyTorch layout would differ from optax's."""
+        if self.kind == "adafactor" and layouts is None:
+            raise ValueError("Adafactor factors in the Flax layout: pass layouts "
+                             "(utils.convert.flax_layouts of the trained module)")
+        self.layouts = dict(layouts or {})
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
-        return OptState(mu=zeros(), nu=zeros(), acc=zeros() if self.every_k > 1 else {})
+        state = OptState(acc=zeros() if self.every_k > 1 else {})
+        if self.kind == "adamw":
+            state.mu, state.nu = zeros(), zeros()
+            return state
+        for n, p in params.items():
+            shape = self._flax(n, p).shape
+            dims = factored_dims(tuple(shape))
+            if dims is None:
+                state.v[n] = torch.zeros(shape, dtype=torch.float32, device=p.device)
+            else:
+                d1, d0 = dims
+                state.v_row[n] = torch.zeros([s for i, s in enumerate(shape) if i != d0],
+                                             dtype=torch.float32, device=p.device)
+                state.v_col[n] = torch.zeros([s for i, s in enumerate(shape) if i != d1],
+                                             dtype=torch.float32, device=p.device)
+        return state
+
+    def _flax(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        perm = self.layouts.get(name)
+        return x.permute(perm) if perm is not None else x
 
     def update(self, grads: Params, state: OptState, params: Params) -> Params:
         if self.every_k <= 1:
@@ -164,15 +232,17 @@ class Optimizer:
         oc = self.config
         norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
         clip = norm < oc.max_grad_norm
+        grads = {n: torch.where(clip, g, (g / norm) * oc.max_grad_norm) for n, g in grads.items()}
         lr = self.schedule(state.count)
         state.count += 1
+        if self.kind == "adafactor":
+            return self._adafactor(grads, state, lr)
         b1, b2 = oc.adam_beta1, oc.adam_beta2
         # optax evaluates decay ** count in fp32
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.int32(state.count))
         bc2 = float(np.float32(1.0) - np.float32(b2) ** np.int32(state.count))
         updates = {}
         for n, g in grads.items():
-            g = torch.where(clip, g, (g / norm) * oc.max_grad_norm)
             mu, nu = state.mu[n], state.nu[n]
             mu.copy_((1.0 - b1) * g + b1 * mu)
             nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
@@ -181,8 +251,52 @@ class Optimizer:
             updates[n] = u * (-lr)
         return updates
 
+    def _adafactor(self, grads: Params, state: OptState, lr: float) -> Params:
+        # the decay at the count before this update, in fp32 as optax has it
+        t = np.float32(state.count)
+        decay = np.float32(1.0) - t ** np.float32(-ADAFACTOR_DECAY_RATE)
+        keep, take = float(decay), float(np.float32(1.0) - decay)
+        updates = {}
+        for n, g in grads.items():
+            gf = self._flax(n, g.float())
+            sq = gf * gf + ADAFACTOR_EPS
+            if n in state.v:
+                v = state.v[n]
+                v.copy_(keep * v + take * sq)
+                uf = gf * v ** -0.5
+            else:
+                d1, d0 = factored_dims(tuple(gf.shape))
+                vr, vc = state.v_row[n], state.v_col[n]
+                vr.copy_(keep * vr + take * sq.mean(dim=d0))
+                vc.copy_(keep * vc + take * sq.mean(dim=d1))
+                row_col_mean = vr.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+                row_factor = (vr / row_col_mean) ** -0.5
+                col_factor = vc ** -0.5
+                uf = gf * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            perm = self.layouts.get(n)
+            u = uf.permute(_inverse(perm)) if perm is not None else uf
+            updates[n] = (u * lr) * -1.0
+        return updates
+
 
 def make_optimizer(config: TrainConfig, total_steps: int) -> Optimizer:
+    """The JAX package's optimizer stack (see ``Optimizer``).  With
+    ``optimizer='adafactor'`` it warns when an Adam flag was set away from
+    its default: classic Adafactor keeps no momentum and applies no weight
+    decay, and Adam's epsilon is not its unit."""
+    oc = config.optimizer
+    if oc.optimizer == "adafactor":
+        defaults = OptimizerConfig()
+        ignored = [name for name in ("adam_beta1", "adam_beta2", "adam_weight_decay", "adam_epsilon")
+                   if getattr(oc, name) != getattr(defaults, name)]
+        if ignored:
+            warnings.warn(
+                f"optimizer='adafactor' ignores {', '.join(ignored)}: "
+                "classic Adafactor keeps no momentum and applies no weight "
+                "decay (see make_optimizer docstring); ported AdamW recipes "
+                "lose both.  Use optimizer='adamw' to honor these flags.",
+                stacklevel=2,
+            )
     return Optimizer(config, total_steps)
 
 
@@ -246,7 +360,7 @@ def create_train_state(
     params = {n: named[n] for n in trainable}
     return TrainState(
         step=0, unet=unet, trainable=trainable, frozen=frozen, optimizer=optimizer,
-        opt_state=optimizer.init(params),
+        opt_state=optimizer.init(params, flax_layouts(unet, trainable)),
         ema={n: p.detach().clone() for n, p in params.items()} if config.use_ema else None,
         vae=vae, text_encoder=text_encoder, image_encoder=image_encoder,
     )

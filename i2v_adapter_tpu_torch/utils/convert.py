@@ -94,12 +94,64 @@ def merge_trees(frozen: Mapping[str, Any], trainable: Mapping[str, Any]) -> dict
     return out
 
 
+def _optax_states(tree):
+    """Every NamedTuple state inside an optax state (chains and MultiSteps
+    nest them in tuples)."""
+    if isinstance(tree, tuple):
+        if hasattr(tree, "_fields"):
+            yield tree
+        for item in tree:
+            yield from _optax_states(item)
+
+
+def _load_opt_state(state, opt_state) -> None:
+    """Fill the port's ``OptState`` from a JAX optax state: AdamW's
+    ``ScaleByAdamState`` or Adafactor's ``FactoredState`` (its statistics
+    stay in the Flax layout), and ``MultiStepsState``'s counters and
+    accumulator."""
+    modules = dict(state.unet.named_modules())
+    paths = {n: flax_leaf(modules, n) for n in state.trainable}
+
+    def take(tree, name, permute=True):
+        path, perm = paths[name]
+        node = tree
+        for part in path:
+            node = node[part]
+        value = torch.from_numpy(np.array(node, dtype=np.float32))
+        return value.permute(tuple(np.argsort(perm))) if permute and perm is not None else value
+
+    ours = state.opt_state
+    kinds = {type(s).__name__: s for s in _optax_states(opt_state)}
+    inner = {"adamw": "ScaleByAdamState", "adafactor": "FactoredState"}[state.optimizer.kind]
+    if inner not in kinds:
+        raise ValueError(f"the JAX optimizer state holds no {inner} ({sorted(kinds)})")
+    found = kinds[inner]
+    ours.count = int(found.count)
+    with torch.no_grad():
+        if inner == "ScaleByAdamState":
+            for n in state.trainable:
+                ours.mu[n].copy_(take(found.mu, n))
+                ours.nu[n].copy_(take(found.nu, n))
+        else:
+            for key in ("v_row", "v_col", "v"):
+                for n, t in getattr(ours, key).items():
+                    t.copy_(take(getattr(found, key), n, permute=False))
+        multi = kinds.get("MultiStepsState")
+        if (multi is None) != (state.optimizer.every_k <= 1):
+            raise ValueError("MultiSteps: present on one side only")
+        if multi is not None:
+            ours.mini_step, ours.gradient_step = int(multi.mini_step), int(multi.gradient_step)
+            for n in state.trainable:
+                ours.acc[n].copy_(take(multi.acc_grads, n))
+
+
 def load_train_state(state, jax_state) -> Any:
-    """Fill a port ``TrainState``'s models from a JAX ``TrainState``: its
-    trainable + frozen UNet trees, its EMA of the trainables (present on
+    """Fill a port ``TrainState`` from a JAX ``TrainState``: its step, its
+    trainable + frozen UNet trees, its optimizer state (AdamW or
+    Adafactor, in MultiSteps or not), its EMA of the trainables (present on
     both sides or neither) and its VAE / text / image trees (each present
-    on both sides).  Strict, like ``load_flax_params``; each parameter
-    keeps its own dtype."""
+    on both sides).  Strict, like ``load_flax_params``; each tensor keeps
+    its own dtype."""
     if (state.ema is None) != (getattr(jax_state, "ema", None) is None):
         raise ValueError("ema: present on one side only")
     if state.ema is not None:  # the EMA tree goes through the UNet's own names
@@ -114,7 +166,41 @@ def load_train_state(state, jax_state) -> Any:
             raise ValueError(f"{name}: present on one side only")
         if module is not None:
             load_flax_params(module, tree)
+    _load_opt_state(state, jax_state.opt_state)
+    state.step = int(jax_state.step)
     return state
+
+
+def flax_leaf(modules: Mapping[str, nn.Module], name: str):
+    """``(path, perm)`` of the parameter ``name`` of a module whose
+    submodules are ``modules`` (``dict(module.named_modules())``): its
+    Flax path parts (``kernel`` / ``scale`` / ``embedding`` for the leaf)
+    and the permutation that turns the PyTorch layout into the Flax one
+    (``tensor.permute(perm)``), or None where the two agree."""
+    parent, _, leaf = name.rpartition(".")
+    owner = modules.get(parent)
+    perm = None
+    if leaf == "weight" and isinstance(owner, nn.Conv2d):
+        leaf, perm = "kernel", (2, 3, 1, 0)
+    elif leaf == "weight" and isinstance(owner, nn.Linear):
+        leaf, perm = "kernel", (1, 0)
+    elif leaf == "weight" and isinstance(owner, nn.Embedding):
+        leaf = "embedding"
+    elif leaf == "weight":
+        leaf = "scale"
+    return (parent.split(".") if parent else []) + [leaf], perm
+
+
+def flax_layouts(module: nn.Module, names) -> Dict[str, tuple]:
+    """``{name: perm}`` for the parameters among ``names`` whose Flax layout
+    is a permutation of the PyTorch one (Linear and Conv2d weights)."""
+    modules = dict(module.named_modules())
+    out = {}
+    for name in names:
+        perm = flax_leaf(modules, name)[1]
+        if perm is not None:
+            out[name] = perm
+    return out
 
 
 def to_flax_tree(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
@@ -127,21 +213,14 @@ def to_flax_tree(module: nn.Module, params: Optional[Mapping[str, torch.Tensor]]
         params = dict(module.named_parameters())
     tree: dict = {}
     for name, tensor in params.items():
-        value = tensor.detach().float().cpu().numpy()
-        parent, _, leaf = name.rpartition(".")
-        owner = modules.get(parent)
-        if leaf == "weight" and isinstance(owner, nn.Conv2d):
-            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and isinstance(owner, nn.Linear):
-            leaf, value = "kernel", value.T
-        elif leaf == "weight" and isinstance(owner, nn.Embedding):
-            leaf = "embedding"
-        elif leaf == "weight":
-            leaf = "scale"
+        path, perm = flax_leaf(modules, name)
+        value = tensor.detach().float().cpu()
+        if perm is not None:
+            value = value.permute(perm)
         node = tree
-        for part in parent.split(".") if parent else []:
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[path[-1]] = np.ascontiguousarray(value.numpy())
     return tree
 
 

@@ -574,3 +574,83 @@ def test_scan_dispatch_equals_stepwise_on_card(cuda_device, encoder_cache):
     assert len(pipe.last_dispatch["capture_ms"]) == encoder_cache  # one graph per kind used twice or more
     assert counts["scan"] == counts["stepwise"] and counts["scan"]["int8_conv3x3_kernel"] > 0
     np.testing.assert_array_equal(outs["scan"], outs["stepwise"])
+
+
+@pytest.mark.gpu
+def test_native_preprocessing_builds_on_card_host(cuda_device):
+    """The host library the WebVid path uses (``csrc/preprocess.cpp``,
+    built with g++ at first use) loads, and its [-1, 1] resize and crop
+    agrees with the numpy path."""
+    import numpy as np
+
+    from i2v_adapter_tpu_torch.data import native
+    from i2v_adapter_tpu_torch.utils.image import resize_center_crop
+
+    assert native.available(), native.library_path()
+    frames = np.random.default_rng(0).integers(0, 256, (3, 40, 60, 3), dtype=np.uint8)
+    got = native.preprocess_frames_pm1(frames, 32)
+    want = np.stack([resize_center_crop(f.astype(np.float32) / 255.0, 32, 32) * 2 - 1 for f in frames])
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def _port_synth():
+    """``tests/torch_port_synth.py`` by path (a package named ``tests`` may
+    be installed on the card machine)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_synth.py")
+    spec = importlib.util.spec_from_file_location("torch_port_synth", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+def test_tiny_driver_run_on_card(cuda_device, tmp_path):
+    """``training/driver.py`` at the tiny config on the card, 256 px (so
+    the level-0 sites hold 1024 tokens), bf16, remat: 2 steps launch K1, K2
+    and K3 and no int8 kernel, and write the full states, the epoch's
+    adapter checkpoint and the pipeline export."""
+    import os
+
+    import numpy as np
+
+    from i2v_adapter_tpu_torch.config import tiny_test_config
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.training import driver
+
+    cv2 = pytest.importorskip("cv2")
+    cfg = tiny_test_config()
+    _port_synth().write_pretrained_dir(str(tmp_path / "pre"), cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    (tmp_path / "videos" / "p0").mkdir(parents=True)
+    rows = []
+    for i in range(2):
+        w = cv2.VideoWriter(str(tmp_path / "videos" / "p0" / f"v{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 8,
+                            (272, 256))
+        if not w.isOpened():
+            pytest.skip("no mp4 writer")
+        for _ in range(16):
+            w.write(rng.integers(0, 256, (256, 272, 3), dtype=np.uint8))
+        w.release()
+        rows.append(f"v{i},clip {i},p0")
+    (tmp_path / "train.csv").write_text("videoid,name,page_dir\n" + "\n".join(rows) + "\n")
+    argv = ["--task_name", "t", "--pretrained_model_path", str(tmp_path / "pre"), "--csv_path",
+            str(tmp_path / "train.csv"), "--video_folder", str(tmp_path / "videos"), "--output_dir",
+            str(tmp_path / "out"), "--resolution", "256", "--n_frames", "4", "--train_batch_size", "2",
+            "--gradient_accumulation_steps", "1", "--mixed_precision", "bfloat16", "--freeze_dtype", "bfloat16",
+            "--gradient_checkpointing", "--max_train_steps", "2", "--num_train_epochs", "2",
+            "--checkpoint_epoch", "1", "--checkpointing_steps", "1", "--num_workers", "1", "--report_to", "none"]
+    before = launches.snapshot()
+    result = driver.main(argv, model_config=cfg)
+    counts = launches.since(before)
+    assert result["global_step"] == 2 and all(np.isfinite(result["losses"]))
+    assert min(counts["flash_attention"], counts["temporal_attention_cs"], counts["flash_attention_bwd"]) > 0
+    assert counts["int8_conv3x3_kernel"] == counts["int8_matmul"] == 0
+    task = tmp_path / "out" / "t"
+    for path in ("state/step_1.safetensors", "state/step_2.safetensors",
+                 "epoch_1/i2v_adapter/diffusion_pytorch_model.safetensors",
+                 "epoch_2/i2v_adapter/diffusion_pytorch_model.safetensors",
+                 "pipeline/unet/flax_model.safetensors", "pipeline/model_config.json"):
+        assert os.path.exists(task / path), path

@@ -76,11 +76,12 @@ def test_train_config_validation_matches_jax(kwargs):
 
 
 def test_unported_training_options_raise():
+    """A mesh is still refused; Adafactor is ported (held against optax in
+    tests/test_torch_port_driver.py) and builds."""
     with pytest.raises(NotImplementedError, match="mesh"):
         pconfig.TrainConfig(mesh=pconfig.MeshConfig(data=4))
     tc = pconfig.TrainConfig(optimizer=pconfig.OptimizerConfig(optimizer="adafactor"))
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        make_optimizer(tc, 10)
+    assert make_optimizer(tc, 10).kind == "adafactor"
 
 
 # ---------------------------------------------------------------------------
