@@ -139,9 +139,11 @@ import time
 import numpy as np
 import torch
 
-# card peaks (H100 SXM data sheet, dense): bf16 and int8 tensor cores, HBM
+# card peaks (H100 SXM data sheet, dense): bf16 and int8 tensor cores, fp32
+# outside the tensor cores, HBM
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # errors are max |kernel - plain| over max |plain| (no floor: attention
@@ -453,6 +455,79 @@ def launches_per_train_step(ucfg, latent: int, tcfg, min_nk: int = 1024) -> dict
             "conv3x3_kernel": recompute * conv_launches_per_unet_eval(ucfg)}
 
 
+# the latent phase: the zoo at its defaults, 2 clips x 16 frames of 256 px
+# (32x32 latents) for SimpleUNet3D, 8 images of 512 px (64x64 latents) for
+# SimpleUNet, 1 warm-up + 4 timed steps each, 2 image_only steps on single
+# frames, and two samplers over every one of the 1000 train timesteps
+LATENT_ZOO = {"widths": (64, 128, 256), "attention_levels": (False, True, True), "heads": 4}
+LATENT_CLIPS, LATENT_CLIP_FRAMES, LATENT_FRAMES, LATENT_VIDEO_BATCH = 4, 64, 16, 2
+LATENT_IMAGES, LATENT_IMAGE_BATCH, LATENT_IMAGE_ONLY_STEPS = 16, 8, 2
+LATENT_VIDEO_SIZE, LATENT_IMAGE_SIZES = 256, (256, 512)
+LATENT_SAMPLE_TIMESTEPS, LATENT_GUIDANCE = 1000, 7.5
+LATENT_DOME_BATCH = 8
+
+
+def simple_eval_sites(zoo: dict, latent: int, video: bool = False, cross: bool = True, frames: int = 1,
+                      train: bool = False, min_nk: int = 1024) -> dict:
+    """K1 / K3 launches of one evaluation of a zoo UNet (SimpleUNet, or
+    SimpleUNet3D with ``video``) on ``latent`` x ``latent`` latents, by site
+    shape: ``{(kernel, rows, keys, d): launches}``, where ``rows`` is the
+    attention sequences per sample (``frames`` for a video UNet's spatial
+    sites, the tokens for its temporal ones), so that a batch of ``b``
+    samples launches the kernel at ``b * rows`` sequences.  K1 runs every
+    self-attention with >= 128 keys: one per transformer block of
+    SimpleUNet (down and up at each attention level, and the mid block),
+    per attention site of SimpleUNet3D the VideoTransformer's spatial block
+    and, given a context (``cross``), the cross block's self-attention;
+    their temporal blocks attend over ``frames`` keys and the
+    cross-attention over the 77 context tokens.  With ``train`` K3 runs at
+    every K1 site with >= ``min_nk`` keys (every parameter trains, so every
+    site's inputs carry a gradient).  The dome's attention is plain math."""
+    n = len(zoo["widths"])
+    levels = [i for i in range(n) if zoo["attention_levels"][i]] * 2 + [n - 1]
+    out = {}
+    for level in levels:
+        tokens, d = (latent >> level) ** 2, zoo["widths"][level] // zoo["heads"]
+        spatial_rows = frames if video else 1
+        sites = [(spatial_rows, tokens)] * (1 + int(video and cross)) + ([(tokens, frames)] if video else [])
+        for rows, keys in sites:
+            for kernel, runs in (("flash_attention", keys >= 128), ("flash_attention_bwd", train and keys >= min_nk)):
+                if runs:
+                    out[(kernel, rows, keys, d)] = out.get((kernel, rows, keys, d), 0) + 1
+    return out
+
+
+def launches_per_simple_eval(zoo: dict, latent: int, **kwargs) -> dict:
+    """``simple_eval_sites``' launches summed by kernel (a CFG-doubled batch
+    is one evaluation either way)."""
+    out = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for (kernel, *_), count in simple_eval_sites(zoo, latent, **kwargs).items():
+        out[kernel] += count
+    return out
+
+
+def latent_run_launches(zoo: dict, steps: int, timesteps: int) -> dict:
+    """The latent phase's launches by K1 / K3 shape ``(kernel, bq, n, d)``
+    (``bq`` = batch x rows): ``steps`` steps of each trainer (warm-up
+    included), ``LATENT_IMAGE_ONLY_STEPS`` image_only steps (single frames
+    lifted to T = 1) and the two samplers over ``timesteps`` steps each
+    (CFG doubles their batch of 1)."""
+    video_lat, image_lat = LATENT_VIDEO_SIZE // 8, LATENT_IMAGE_SIZES[1] // 8
+    runs = (  # batch, latent, evaluation, count
+        (LATENT_VIDEO_BATCH, video_lat, dict(video=True, frames=LATENT_FRAMES, train=True), steps),
+        (LATENT_VIDEO_BATCH, video_lat, dict(video=True, frames=1, train=True), LATENT_IMAGE_ONLY_STEPS),
+        (LATENT_IMAGE_BATCH, image_lat, dict(train=True), steps),
+        (2, video_lat, dict(video=True, frames=LATENT_FRAMES), timesteps),
+        (2, video_lat, {}, timesteps),
+    )
+    out = {}
+    for batch, latent, evaluation, count in runs:
+        for (kernel, rows, keys, d), n in simple_eval_sites(zoo, latent, **evaluation).items():
+            key = (kernel, batch * rows, keys, d)
+            out[key] = out.get(key, 0) + count * n
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -628,6 +703,74 @@ def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row, ok
+
+
+def _zoo_flash_case(name, bq, n, d, dev, iters, latent_weight):
+    """K1 at a latent-zoo shape, in fp32 (the zoo's dtype: K1's scalar path)
+    with 4 heads and the exact running max, as the zoo calls it: with the
+    logsumexp where training takes K3 (``n >= FLASH_BWD_MIN_NK``).  Times
+    in fp32: the kernel, its plain version and fp32 SDPA; the bound at the
+    card's fp32 rate outside the tensor cores.  ``latent_weight`` is the
+    shape's launches in one latent phase."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.ops.attention import FLASH_BWD_MIN_NK, _plain_attention, flash_attention
+
+    h, scale, with_lse = 4, 1.0 / math.sqrt(d), n >= FLASH_BWD_MIN_NK
+    g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d + 5)
+    q = torch.randn(bq, n, 3 * h * d, generator=g, device=dev)[..., : h * d].unflatten(-1, (h, d))
+    k, v = (torch.randn(bq, n, h, d, generator=g, device=dev) for _ in range(2))
+    got, lse = flash_attention(q, k, v, scale=scale, static_max=0.0, with_lse=True)
+    want, want_lse = _plain_attention(q, k, v, 1, scale, 0.0, with_lse=True)
+    row = {"name": name, "bq": bq, "bkv": bq, "kv_repeat": 1, "n": n, "nk": n, "d": d, "heads": h,
+           "static_max": 0.0, "dtype": "fp32", "with_lse": with_lse, "launches_per_eval": 0,
+           "launches_per_latent_run": latent_weight, "rel_err_fp32": rel_err(got, want),
+           "abs_err_fp32": abs_err(got, want), "lse_rel_err_fp32": rel_err(lse, want_lse),
+           "finite_fp32": bool(torch.isfinite(got).all())}
+    row["ms"] = device_ms(lambda: flash_attention(q, k, v, scale=scale, static_max=0.0, with_lse=with_lse), iters)
+    row["plain_ms"] = device_ms(lambda: _plain_attention(q, k, v, 1, scale, 0.0, with_lse=with_lse), 3)
+    row["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale), iters)
+    flops = 4.0 * bq * h * n * n * d
+    nbytes = 4.0 * h * d * 4 * bq * n + (4.0 * bq * h * n if with_lse else 0.0)
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    ok = row["finite_fp32"] and row["rel_err_fp32"] <= TOL_FP32 and row["lse_rel_err_fp32"] <= TOL_FP32
+    return row, ok
+
+
+def _zoo_flash_bwd_case(name, bq, n, d, dev, iters, latent_weight):
+    """K3 at a latent-zoo shape in fp32 (its scalar path), 4 heads, from
+    K1's own o and lse under the exact running max; times in fp32 beside
+    the backward of fp32 SDPA through autograd."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.ops.attention import _plain_flash_backward, flash_attention, flash_attention_bwd
+
+    h, scale = 4, 1.0 / math.sqrt(d)
+    g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d + 6)
+    q = torch.randn(bq, n, 3 * h * d, generator=g, device=dev)[..., : h * d].unflatten(-1, (h, d))
+    k, v, do = (torch.randn(bq, n, h, d, generator=g, device=dev) for _ in range(3))
+    o, lse = flash_attention(q, k, v, scale=scale, static_max=0.0, with_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse, scale=scale)
+    want = _plain_flash_backward(q, k, v, o, do, lse, 1, scale)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    row = {"name": name, "bq": bq, "bkv": bq, "kv_repeat": 1, "n": n, "d": d, "heads": h, "static_max": 0.0,
+           "dtype": "fp32", "launches_per_step": 0, "launches_per_latent_run": latent_weight,
+           "rel_err_fp32": max(errs), "rel_err_fp32_dq_dk_dv": errs,
+           "abs_err_fp32": max(abs_err(a, b) for a, b in zip(got, want)),
+           "finite_fp32": all(bool(torch.isfinite(a).all()) for a in got)}
+    row["ms"] = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, scale=scale), iters)
+    row["plain_ms"] = device_ms(lambda: _plain_flash_backward(q, k, v, o, do, lse, 1, scale), 3)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    row["library_ms"] = device_ms(
+        lambda: torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), iters)
+    flops = 10.0 * bq * h * n * n * d
+    nbytes = 4.0 * h * d * n * 5 * bq + 4.0 * bq * h * n + 4.0 * h * d * n * 3 * bq
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row, row["finite_fp32"] and row["rel_err_fp32"] <= TOL_FP32
 
 
 def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_weight=0,
@@ -1061,6 +1204,18 @@ def phase_kernels(dev, rehearse: bool):
         row, ok = _flash_bwd_case(*case[:-1], dev=dev, iters=5, weight=case[-1])
         rows["flash_attention_bwd"].append(row)
         failed += [] if ok else ["bwd " + row["name"]]
+    # the latent zoo's shapes (fp32, 4 heads), weighted by their launches in
+    # one latent phase: K1 at the video UNet's 256-token sites (2 clips x 16
+    # frames; its sampler's CFG batch of 16 frames) and at the image UNet's
+    # 1024- and 256-token sites (batch 8), the image_only steps' and the 2-D
+    # sampler's 256-token sites (batch 2); K3 at the 1024-token sites
+    for (kernel, bq, n, d), count in latent_run_launches(LATENT_ZOO, 1 + TRAIN_STEPS,
+                                                           LATENT_SAMPLE_TIMESTEPS).items():
+        if kernel == "flash_attention":
+            add("flash_attention", _zoo_flash_case(f"zoo fp32 B{bq} N{n} D{d}", bq, n, d, dev, 20, count))
+        else:
+            add("flash_attention_bwd", _zoo_flash_bwd_case(f"zoo fp32 B{bq} N{n} D{d}", bq, n, d, dev, 20, count),
+                "bwd ")
     for case in temporal_cases:
         row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=case[-1])
         rows["temporal_attention_cs"].append(row)
@@ -2450,6 +2605,275 @@ def phase_driver(model_cfg, dev, rehearse: bool, ckpt: dict):
     return i2v_counts, t2i["launches"]
 
 
+def _write_images(folder: str, n: int, rehearse: bool) -> None:
+    """``n`` PNGs (a gradient under noise, 600 x 520, or 80 x 72 in
+    rehearsal) in two class folders."""
+    from PIL import Image
+
+    rng = np.random.default_rng(31)
+    w, h = (80, 72) if rehearse else (600, 520)
+    base = np.linspace(0, 255, w, dtype=np.float32)[None, :, None]
+    for i in range(n):
+        cls = os.path.join(folder, ("red", "blue")[i % 2])
+        os.makedirs(cls, exist_ok=True)
+        img = np.clip(np.roll(base, 7 * i, axis=1) + rng.normal(0, 24, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(cls, f"img{i:02d}.png"))
+
+
+def _embeds_by_caption(captions_path: str, embeds_path: str) -> dict:
+    with open(captions_path) as f:
+        captions = f.read().split("\n")
+    embeds = np.load(embeds_path)
+    if len(captions) != len(embeds):
+        raise AssertionError(f"{len(captions)} captions vs {len(embeds)} text embeddings")
+    return {c: embeds[i].astype(np.float32) for i, c in enumerate(captions)}
+
+
+def _timed_steps(step_fn, opt, batches, sync):
+    """Run ``step_fn`` over ``batches``: per step the synchronised ms, the
+    loss and the launches (counts set to 0 before it and read after)."""
+    out = []
+    for batch in batches:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        opt, loss = step_fn(opt, batch)
+        sync()
+        out.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss), "launches": launch_counts()})
+    return opt, out
+
+
+def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
+    """The latent-diffusion zoo on the card, end to end: the offline
+    encoders on the ``pretrained`` directory (full width, fp16) write
+    4 clips' latents (64 frames at 336 x 256, encoded at 256 px in slices
+    of 16), 16 PNGs' latents at 256 and 512 px and the captions' CLIP
+    embeddings; SimpleUNet3D (defaults, fp32) trains on the video latents
+    (2 clips x 16 frames with text, 1 warm-up + 4 timed steps), then 2
+    ``image_only`` steps on single frames; SimpleUNet trains on the 512 px
+    image latents (batch 8, 1 + 4 steps); both sample with CFG 7.5 over all
+    1000 timesteps; one SimpleUNetDome forward at (8, 64, 64, 3); each
+    trained UNet's checkpoint written, read into a fresh model and compared
+    bit for bit.  Every step's, sampler's and forward's K1 / K3 launches are
+    held to ``launches_per_simple_eval``, no other kernel launching; the
+    losses finite, every parameter moved, the samples finite.  Returns the
+    phase's launches (the steps, samplers and dome)."""
+    from i2v_adapter_tpu_torch.data.latent import LatentImageDataset, LatentVideoDataset
+    from i2v_adapter_tpu_torch.models.simple import SimpleUNet, SimpleUNet3D, SimpleUNetDome
+    from i2v_adapter_tpu_torch.tools import encode_image, encode_text, encode_video
+    from i2v_adapter_tpu_torch.training.train_latent import (
+        LATENT_SCHEDULE,
+        load_simple_checkpoint,
+        make_latent_train_step,
+        make_video_latent_train_step,
+        sample_latents,
+        save_simple_checkpoint,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the zoo is fp32, as in JAX
+    torch.backends.cudnn.allow_tf32 = False
+    work, root = os.path.join(WORK_DIR, "latent"), ckpt["root"]
+    zoo, timesteps = LATENT_ZOO, LATENT_SAMPLE_TIMESTEPS
+    video_size, image_sizes, clip_frames = LATENT_VIDEO_SIZE, LATENT_IMAGE_SIZES, LATENT_CLIP_FRAMES
+    clip_w, clip_h = 336, 256
+    dome_batch, frames = LATENT_DOME_BATCH, LATENT_FRAMES
+    if rehearse:  # the tiny VAE halves, not eighths; narrow zoo, short schedule
+        zoo, timesteps = {"widths": (16, 32), "attention_levels": (False, True), "heads": 2}, 24
+        video_size, image_sizes, clip_w, clip_h, clip_frames = 32, (32, 64), 48, 40, 16
+        dome_batch, frames = 1, 4
+    device_flag = ["--device", "cpu"] if rehearse else []
+    sync = (lambda: None) if rehearse else torch.cuda.synchronize
+    schedule = LATENT_SCHEDULE.replace(num_train_timesteps=timesteps)
+    ctx_dim = model_cfg.text_encoder.hidden_size
+    failed, timings = [], {}
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        timings[name] = time.perf_counter() - t0
+        return out
+
+    # -- the offline encoders --------------------------------------------
+    _write_clips(os.path.join(work, "videos"), LATENT_CLIPS, clip_frames, clip_w, clip_h)
+    _write_images(os.path.join(work, "images"), LATENT_IMAGES, rehearse)
+    vid_dir = os.path.join(work, "video_latents")
+    timed("encode_video_s", lambda: encode_video.encode_videos(
+        ["--video_folder", os.path.join(work, "videos"), "--vae_path", os.path.join(root, "vae"), "--output_dir",
+         vid_dir, "--sample_size", str(video_size), "--slice_frames", "16"] + device_flag, model_config=model_cfg))
+    img_dirs = {}
+    for size in image_sizes:
+        img_dirs[size] = os.path.join(work, f"image_latents_{size}")
+        timed(f"encode_image_{size}_s", lambda: encode_image.encode_images(
+            ["--image_folder", os.path.join(work, "images"), "--vae_path", os.path.join(root, "vae"),
+             "--output_dir", img_dirs[size], "--sample_size", str(size)] + device_flag, model_config=model_cfg))
+    text = ["--text_encoder_path", os.path.join(root, "text_encoder"), "--tokenizer_path",
+            os.path.join(root, "tokenizer")] + device_flag
+    for name, captions in (("video", os.path.join(vid_dir, "prompts.txt")),
+                           ("image", os.path.join(img_dirs[image_sizes[1]], "captions.txt"))):
+        timed(f"encode_text_{name}_s", lambda: encode_text.encode_text(
+            ["--caption_file", captions, "--output_path", os.path.join(work, f"{name}_embeds.npy")] + text,
+            model_config=model_cfg))
+    factor = model_cfg.vae.spatial_scale_factor
+    files = {"video_latents": np.load(os.path.join(vid_dir, "latents.npy"), mmap_mode="r"),
+             "frames_per_video": np.load(os.path.join(vid_dir, "frames_per_video.npy")),
+             "video_embeds": np.load(os.path.join(work, "video_embeds.npy"), mmap_mode="r"),
+             "image_embeds": np.load(os.path.join(work, "image_embeds.npy"), mmap_mode="r"),
+             **{f"image_latents_{s}": np.load(os.path.join(d, "latents.npy"), mmap_mode="r")
+                for s, d in img_dirs.items()}}
+    want_shapes = {"video_latents": (LATENT_CLIPS * clip_frames, video_size // factor, video_size // factor, 4),
+                   "frames_per_video": (LATENT_CLIPS,),
+                   "video_embeds": (LATENT_CLIPS, model_cfg.text_encoder.max_position_embeddings, ctx_dim),
+                   "image_embeds": (LATENT_IMAGES, model_cfg.text_encoder.max_position_embeddings, ctx_dim),
+                   **{f"image_latents_{s}": (LATENT_IMAGES, s // factor, s // factor, 4) for s in image_sizes}}
+    encoded = {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in files.items()}
+    for k, v in files.items():
+        if tuple(v.shape) != want_shapes[k] or (v.dtype != np.float16 and k != "frames_per_video") \
+                or not np.isfinite(np.asarray(v, np.float32)).all():
+            failed.append(f"encoded {k}: {encoded[k]}, want {want_shapes[k]} finite fp16")
+
+    # -- datasets and batches --------------------------------------------
+    vds = LatentVideoDataset(os.path.join(vid_dir, "latents.npy"), os.path.join(vid_dir, "frames_per_video.npy"),
+                             os.path.join(vid_dir, "prompts.txt"), sample_n_frames=frames, seed=0)
+    ids = LatentImageDataset(os.path.join(img_dirs[image_sizes[1]], "latents.npy"),
+                             os.path.join(img_dirs[image_sizes[1]], "captions.txt"))
+    video_text = _embeds_by_caption(os.path.join(vid_dir, "prompts.txt"), os.path.join(work, "video_embeds.npy"))
+    image_text = _embeds_by_caption(os.path.join(img_dirs[image_sizes[1]], "captions.txt"),
+                                    os.path.join(work, "image_embeds.npy"))
+
+    def batch_of(items, text_by_caption, lift=lambda z: z):
+        return {"latents": torch.from_numpy(np.stack([lift(it["latents"]) for it in items])).to(dev),
+                "text_embeds": torch.from_numpy(np.stack([text_by_caption[it["text"]] for it in items])).to(dev)}
+
+    steps = 1 + TRAIN_STEPS
+    video_batches = [batch_of([vds[(2 * i + j) % len(vds)] for j in range(LATENT_VIDEO_BATCH)], video_text)
+                     for i in range(steps)]
+    frame_batches = [batch_of([vds[j] for j in range(LATENT_VIDEO_BATCH)], video_text, lambda z: z[0])
+                     for _ in range(LATENT_IMAGE_ONLY_STEPS)]
+    image_batches = [batch_of([ids[(LATENT_IMAGE_BATCH * i + j) % len(ids)] for j in range(LATENT_IMAGE_BATCH)],
+                              image_text) for i in range(steps)]
+
+    def moved(model, start):
+        return sum(not torch.equal(p.detach(), start[n]) for n, p in model.named_parameters())
+
+    def held(name, runs, per_run):
+        """Each run's launches against the derivation (K1 / K3 only)."""
+        want = expected_counts(**({} if rehearse else per_run))
+        bad = [r["launches"] for r in runs if r["launches"] != want]
+        if bad:
+            failed.append(f"{name}: launches {bad[0]} != {want}")
+        return want
+
+    # -- training --------------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.manual_seed(0)
+    video_lat, image_lat = video_size // factor, image_sizes[1] // factor
+    unet3d = SimpleUNet3D(**zoo, context_dim=ctx_dim, device=dev)
+    start3d = {n: p.detach().clone() for n, p in unet3d.named_parameters()}
+    init_v, step_v = make_video_latent_train_step(unet3d)
+    _, step_i = make_video_latent_train_step(unet3d, image_only=True)
+    opt_v, video_runs = _timed_steps(lambda o, b: step_v(o, b, gen), init_v(), video_batches, sync)
+    opt_v, image_only_runs = _timed_steps(lambda o, b: step_i(o, b, gen), opt_v, frame_batches, sync)
+    per_video = launches_per_simple_eval(zoo, video_lat, video=True, frames=frames, train=True)
+    held("video step", video_runs, per_video)
+    held("image_only step", image_only_runs, launches_per_simple_eval(zoo, video_lat, video=True, frames=1, train=True))
+    unet2d = SimpleUNet(**zoo, context_dim=ctx_dim, device=dev)
+    start2d = {n: p.detach().clone() for n, p in unet2d.named_parameters()}
+    init_fn, step_fn = make_latent_train_step(unet2d)
+    _, image_runs = _timed_steps(lambda o, b: step_fn(o, b, gen), init_fn(), image_batches, sync)
+    per_image = launches_per_simple_eval(zoo, image_lat, train=True)
+    held("image step", image_runs, per_image)
+    for name, runs, model, start in (("video", video_runs + image_only_runs, unet3d, start3d),
+                                     ("image", image_runs, unet2d, start2d)):
+        if not all(math.isfinite(r["loss"]) for r in runs):
+            failed.append(f"{name} losses {[r['loss'] for r in runs]}")
+        n_moved, n_params = moved(model, start), len(start)
+        if n_moved != n_params:
+            failed.append(f"{name}: {n_moved} of {n_params} parameters moved")
+
+    # -- sampling ------------------------------------------------------------
+    samples = {}
+    for name, model, shape, ctx in (
+            ("image", unet2d, (1, video_lat, video_lat, 4), image_batches[0]["text_embeds"][:1]),
+            ("video", unet3d, (1, frames, video_lat, video_lat, 4), video_batches[0]["text_embeds"][:1])):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        x = sample_latents(model, shape, gen, context=ctx, guidance_scale=LATENT_GUIDANCE, schedule_config=schedule)
+        sync()
+        seconds = time.perf_counter() - t0
+        per_step = launches_per_simple_eval(zoo, video_lat, video=name == "video", frames=frames)
+        want = held(f"{name} sampler", [{"launches": launch_counts()}],
+                    {k: timesteps * v for k, v in per_step.items()})
+        samples[name] = {"shape": list(x.shape), "seconds": seconds, "ms_per_step": seconds * 1e3 / timesteps,
+                         "finite": bool(torch.isfinite(x).all()), "std": float(x.float().std()),
+                         "launches": want}
+        if not samples[name]["finite"]:
+            failed.append(f"{name} sample not finite")
+
+    # -- the dome ---------------------------------------------------------
+    dome = SimpleUNetDome(device=dev)
+    xd = torch.randn((dome_batch, 64, 64, 3), generator=gen, device=dev)
+    td = torch.randint(0, 1000, (dome_batch,), generator=gen, device=dev)
+    with torch.no_grad():
+        dome(xd, td)
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        yd = dome(xd, td)
+        sync()
+        dome_ms = (time.perf_counter() - t0) * 1e3
+    held("dome forward", [{"launches": launch_counts()}], {})
+    if tuple(yd.shape) != (dome_batch, 64, 64, 3) or not bool(torch.isfinite(yd).all()):
+        failed.append(f"dome output {tuple(yd.shape)} finite={bool(torch.isfinite(yd).all())}")
+
+    # -- checkpoints ------------------------------------------------------
+    checkpoints = {}
+    for name, model, fresh in (("image", unet2d, SimpleUNet(**zoo, context_dim=ctx_dim, device=dev)),
+                               ("video", unet3d, SimpleUNet3D(**zoo, context_dim=ctx_dim, device=dev))):
+        path = os.path.join(work, f"{name}_unet.safetensors")
+        nbytes = save_simple_checkpoint(model, path)
+        load_simple_checkpoint(path, fresh)
+        theirs = dict(fresh.named_parameters())
+        mismatched = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), theirs[n].detach())]
+        checkpoints[name] = {"bytes": nbytes, "leaves": len(theirs), "mismatched": mismatched[:4]}
+        if mismatched:
+            failed.append(f"{name} checkpoint: {mismatched[:4]}")
+
+    # the phase's launches: every step, sampler step and forward above
+    runs = video_runs + image_only_runs + image_runs
+    total = {k: sum(r["launches"][k] for r in runs) + sum(s["launches"][k] for s in samples.values())
+             for k in KERNELS}
+    want_total = expected_counts()
+    if not rehearse:
+        for (kernel, *_), count in latent_run_launches(zoo, steps, timesteps).items():
+            want_total[kernel] += count
+    if total != want_total:
+        failed.append(f"phase launches {total} != {want_total}")
+    summary_ms = lambda rs: {"warmup_ms": rs[0]["ms"], "step_ms": [r["ms"] for r in rs[1:]],  # noqa: E731
+                             "mean_step_ms": float(np.mean([r["ms"] for r in rs[1:]])) if len(rs) > 1 else None,
+                             "losses": [r["loss"] for r in rs]}
+    emit({"phase": "latent", "zoo": {k: list(v) if isinstance(v, tuple) else v for k, v in zoo.items()},
+          "context_dim": ctx_dim, "encoded": encoded, "encode_s": timings,
+          "video_train": {"batch": [LATENT_VIDEO_BATCH, frames, video_lat, video_lat, 4], **summary_ms(video_runs),
+                          "launches_per_step": per_video},
+          "image_only_train": {"batch": [LATENT_VIDEO_BATCH, video_lat, video_lat, 4],
+                               "step_ms": [r["ms"] for r in image_only_runs],
+                               "losses": [r["loss"] for r in image_only_runs]},
+          "image_train": {"batch": [LATENT_IMAGE_BATCH, image_lat, image_lat, 4], **summary_ms(image_runs),
+                          "launches_per_step": per_image},
+          "parameters": {"video": len(start3d), "image": len(start2d),
+                         "video_numel": sum(p.numel() for p in start3d.values()),
+                         "image_numel": sum(p.numel() for p in start2d.values())},
+          "sampling": {"timesteps": timesteps, "guidance_scale": LATENT_GUIDANCE, **samples},
+          "dome": {"batch": dome_batch, "forward_ms": dome_ms, "finite": bool(torch.isfinite(yd).all())},
+          "checkpoints": checkpoints, "launches": total, "expected_launches": want_total,
+          "peak_memory_gb": None if rehearse else torch.cuda.max_memory_allocated() / 1e9, "failed": failed})
+    if failed:
+        raise AssertionError(f"latent: {failed}")
+    return total
+
+
 def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase: str = "train",
                 first_loss=None):
     """The reference training workload at full width (tiny in rehearsal):
@@ -2646,7 +3070,7 @@ SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
      ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "driver_t2i", "train",
-      "train_pallas"),
+      "train_pallas", "latent"),
      "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
@@ -2654,7 +3078,7 @@ SUMMARY = (
      "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
-     ("driver", "driver_t2i", "train", "train_pallas"), "launches_per_step"),
+     ("driver", "driver_t2i", "train", "train_pallas", "latent"), "launches_per_step"),
     ("conv3x3_kernel", "conv3x3_kernel", "conv3x3_kernel", CSRC + "conv3x3.cu",
      "i2v_adapter_tpu/ops/conv3x3.py:44", ("pipeline_pallas", "scan", "train_pallas"), "launches_per_eval"),
     ("flash_attention[transposed_io=False]", "flash_attention_row_major", "flash_attention",
@@ -2708,9 +3132,11 @@ def summary(rows, paths) -> dict:
             "library_ms": m["library_ms"],
         })
         for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run"),
-                              ("validation", "launches_per_validation_clip")):
+                              ("validation", "launches_per_validation_clip"),
+                              ("latent", "launches_per_latent_run")):
             if other != weight_key and any(r.get(other, 0) > 0 for r in cases):
-                extra = means(other, ("ms", "bound_ms", "library_ms"))[0]
+                extra = means(other, ("ms", "plain_ms", "bound_ms", "library_ms") if prefix == "latent"
+                              else ("ms", "bound_ms", "library_ms"))[0]
                 out[-1].update({f"{prefix}_{k}": v for k, v in extra.items()})
         if any("dequant_ms" in r for r in main):
             out[-1].update({k: means(weight_key, (k,))[0][k] for k in ("dequant_ms", "dequant_bound_ms")})
@@ -2754,6 +3180,7 @@ def main(argv=None) -> int:
         heads_counts = phase_serve_heads(model_cfg, dev, rehearse, ckpt)
         cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
         driver_counts, driver_t2i_counts = phase_driver(model_cfg, dev, rehearse, ckpt)
+        latent_counts = phase_latent(model_cfg, dev, rehearse, ckpt)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     train_state, batch, step_fn, train_counts, first_loss = phase_train(model_cfg, dev, rehearse)
@@ -2768,7 +3195,7 @@ def main(argv=None) -> int:
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
             "scan": scan_counts,
             "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "driver": driver_counts,
-            "driver_t2i": driver_t2i_counts, "train": train_counts,
+            "driver_t2i": driver_t2i_counts, "latent": latent_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
         idle = [k["name"] for k in kernels["kernels"] if k["launches"] <= 0]

@@ -4,6 +4,7 @@ from i2v_adapter_tpu_torch.schedulers.ddim import (
     ddim_timesteps,
     truncate_timesteps,
 )
+from i2v_adapter_tpu_torch.schedulers.ddpm import ddpm_step
 from i2v_adapter_tpu_torch.schedulers.schedule import (
     NoiseSchedule,
     add_noise,
@@ -19,6 +20,7 @@ __all__ = [
     "ddim_schedule_arrays",
     "ddim_step",
     "ddim_timesteps",
+    "ddpm_step",
     "get_velocity",
     "make_schedule",
     "truncate_timesteps",

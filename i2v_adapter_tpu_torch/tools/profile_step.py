@@ -6,6 +6,7 @@ of one training step.
     python -m i2v_adapter_tpu_torch.tools.profile_step --conv-impl pallas [--train]
     python -m i2v_adapter_tpu_torch.tools.profile_step --int8     # the serving default
     python -m i2v_adapter_tpu_torch.tools.profile_step --int8 --dispatch scan   # a replayed step
+    python -m i2v_adapter_tpu_torch.tools.profile_step --latent   # the latent zoo
 
 ``--conv-impl`` sets ``VideoUNetConfig.conv_impl`` of the profiled model
 (``pallas``: every resnet stage through the fused GroupNorm-apply + SiLU +
@@ -23,7 +24,11 @@ request separately (prep, one denoise step, decode).  ``--train`` builds
 the reference training workload (``config.reference_train_config``: 2
 clips x 16 frames at 256 px, bf16, activation checkpointing) with seeded random
 weights and a synthetic batch, takes one warm-up step and profiles the
-next.  Prints one JSON line per part: wall ms (synchronised), summed kernel
+next.  ``--latent`` profiles the latent zoo at ``chip_smoke.py``'s latent
+shapes (defaults, fp32, a 768-wide context): 10 steps of each sampler
+with CFG (SimpleUNet on (1, 32, 32, 4), SimpleUNet3D on (1, 16, 32, 32,
+4)) and one train step of each (8 x 64x64 latents; 2 clips x 16 frames of
+32x32), after a warm-up run of each.  Prints one JSON line per part: wall ms (synchronised), summed kernel
 ms, the device's idle share (1 - kernel / wall), kernel time by category
 and the top kernels; then the nvidia-smi name and power limit.  Needs one
 CUDA card.
@@ -134,6 +139,41 @@ def profile_train(dev, conv_impl: str) -> None:
     print(json.dumps(line), flush=True)
 
 
+def profile_latent(dev) -> None:
+    from i2v_adapter_tpu_torch.models.simple import SimpleUNet, SimpleUNet3D
+    from i2v_adapter_tpu_torch.training.train_latent import (
+        LATENT_SCHEDULE,
+        make_latent_train_step,
+        make_video_latent_train_step,
+        sample_latents,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the zoo is fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    schedule = LATENT_SCHEDULE.replace(num_train_timesteps=10)
+    ctx = torch.randn(2, 77, 768, generator=gen, device=dev)
+    for name, model, make, sample_shape, batch_shape in (
+            ("image", SimpleUNet(context_dim=768, device=dev), make_latent_train_step, (1, 32, 32, 4),
+             (8, 64, 64, 4)),
+            ("video", SimpleUNet3D(context_dim=768, device=dev), make_video_latent_train_step, (1, 16, 32, 32, 4),
+             (2, 16, 32, 32, 4))):
+        def sample():
+            sample_latents(model, sample_shape, gen, context=ctx[:1], schedule_config=schedule)
+
+        batch = {"latents": torch.rand(batch_shape, generator=gen, device=dev) * 2 - 1,
+                 "text_embeds": ctx.repeat(batch_shape[0] // 2, 1, 1)}
+        init_fn, step_fn = make(model)
+        opt = init_fn()
+        for label, fn in ((f"{name}_sampler_10_steps", sample), (f"{name}_train_step",
+                                                                 lambda: step_fn(opt, batch, gen))):
+            fn()  # warm-up: cuDNN plans, kernel builds
+            line = profile(fn, label)
+            line.update(zoo=name, dtype="float32")
+            print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
@@ -143,12 +183,16 @@ def main(argv=None) -> int:
                     help="serve with int8 convs (PipelineConfig.int8_conv, the serving default)")
     ap.add_argument("--dispatch", default="stepwise", choices=["stepwise", "scan"],
                     help="profile the eager step (stepwise) or a step replayed from its CUDA graph (scan)")
+    ap.add_argument("--latent", action="store_true",
+                    help="profile the latent zoo's samplers and train steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    if args.train:
+    if args.latent:
+        profile_latent(dev)
+    elif args.train:
         profile_train(dev, args.conv_impl)
     else:
         profile_serving(dev, args.conv_impl, args.int8, args.dispatch)

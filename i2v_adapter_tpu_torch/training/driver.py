@@ -319,91 +319,112 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
     record = {k: [] for k in ("losses", "grad_norms", "skipped_nonfinite", "step_s", "data_wait_s")}
     epoch_loss, n_steps = 0.0, 0
 
-    for epoch in range(first_epoch, tc.num_train_epochs):
-        epoch_loss, n_steps = 0.0, 0
-        batches = iter(loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            wait = time.perf_counter() - t0
-            if batch is None:
-                break
-            if profiler is not None:
-                profiler.step(global_step)
-            if args.text_padding == "longest":
-                # the reference's recipe, lengths bucketed to multiples of 8
-                text_ids = pipe.tokenizer(batch.pop("text"), padding="longest")
-                ctx = uncond_ids.shape[1]
-                bucket = min(ctx, max(8, -(-text_ids.shape[1] // 8) * 8))
-                if text_ids.shape[1] < bucket:
-                    text_ids = np.pad(text_ids, ((0, 0), (0, bucket - text_ids.shape[1])),
-                                      constant_values=pipe.tokenizer.eos)
-                u_ids = uncond_ids[: text_ids.shape[0], :bucket]
-            else:
-                text_ids = pipe.tokenizer(batch.pop("text"), padding="max_length")
-                u_ids = uncond_ids[: text_ids.shape[0]]
-            device_batch = _to_device({"pixel_values": batch["pixel_values"], "clip_image": batch["clip_image"],
-                                       "text_ids": text_ids, "uncond_ids": u_ids}, dev)
-            with timer:
-                state, metrics = step_fn(state, device_batch)
-            loss = float(metrics["loss"])
-            epoch_loss += loss
-            n_steps += 1
-            global_step += 1
-            record["losses"].append(loss)
-            record["grad_norms"].append(float(metrics["grad_norm"]))
-            record["skipped_nonfinite"].append(float(metrics["skipped_nonfinite"]))
-            record["step_s"].append(timer.last)
-            record["data_wait_s"].append(wait)
-            if global_step % 10 == 0:
-                metrics_log.log(global_step, {
-                    "train_loss": loss,
-                    "grad_norm": float(metrics["grad_norm"]),
-                    "step_time_s": timer.last,
-                    "steps_per_sec": timer.rate,
-                })
-            if step_ckpt is not None and args.checkpointing_steps and global_step % args.checkpointing_steps == 0:
-                step_ckpt.save(global_step, state)
+    # the loop, validation and export run under a finally that commits any
+    # in-flight async save, so an error there cannot lose the write
+    body_error = None
+    try:
+        for epoch in range(first_epoch, tc.num_train_epochs):
+            epoch_loss, n_steps = 0.0, 0
+            batches = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                wait = time.perf_counter() - t0
+                if batch is None:
+                    break
+                if profiler is not None:
+                    profiler.step(global_step)
+                if args.text_padding == "longest":
+                    # the reference's recipe, lengths bucketed to multiples of 8
+                    text_ids = pipe.tokenizer(batch.pop("text"), padding="longest")
+                    ctx = uncond_ids.shape[1]
+                    bucket = min(ctx, max(8, -(-text_ids.shape[1] // 8) * 8))
+                    if text_ids.shape[1] < bucket:
+                        text_ids = np.pad(text_ids, ((0, 0), (0, bucket - text_ids.shape[1])),
+                                          constant_values=pipe.tokenizer.eos)
+                    u_ids = uncond_ids[: text_ids.shape[0], :bucket]
+                else:
+                    text_ids = pipe.tokenizer(batch.pop("text"), padding="max_length")
+                    u_ids = uncond_ids[: text_ids.shape[0]]
+                device_batch = _to_device({"pixel_values": batch["pixel_values"], "clip_image": batch["clip_image"],
+                                           "text_ids": text_ids, "uncond_ids": u_ids}, dev)
+                with timer:
+                    state, metrics = step_fn(state, device_batch)
+                loss = float(metrics["loss"])
+                epoch_loss += loss
+                n_steps += 1
+                global_step += 1
+                record["losses"].append(loss)
+                record["grad_norms"].append(float(metrics["grad_norm"]))
+                record["skipped_nonfinite"].append(float(metrics["skipped_nonfinite"]))
+                record["step_s"].append(timer.last)
+                record["data_wait_s"].append(wait)
+                if global_step % 10 == 0:
+                    metrics_log.log(global_step, {
+                        "train_loss": loss,
+                        "grad_norm": float(metrics["grad_norm"]),
+                        "step_time_s": timer.last,
+                        "steps_per_sec": timer.rate,
+                    })
+                if step_ckpt is not None and args.checkpointing_steps and global_step % args.checkpointing_steps == 0:
+                    step_ckpt.save(global_step, state)
+                if tc.max_train_steps and global_step >= tc.max_train_steps:
+                    break
+            logger.info("epoch %d: mean loss %.4f (%d steps, %.2f s/step)",
+                        epoch + 1, epoch_loss / max(n_steps, 1), n_steps, timer.mean)
+
+            if (epoch + 1) % tc.checkpoint_epoch == 0:
+                out = os.path.join(task_dir, f"epoch_{epoch + 1}")
+                # with --use_ema the checkpoint downstream consumers load is the
+                # EMA average; the live weights go to non_ema/
+                export = state.ema if tc.use_ema else None
+                if tc.train_mode == "t2i":
+                    ckpt.export_pipeline({"unet": ckpt.flax_tensors(state.unet, export, "params")},
+                                         model_config, out, tc)
+                else:
+                    ckpt.save_adapter_checkpoint(state.unet, model_config.unet, out,
+                                                 save_motion=tc.update_motion_modules, params=export)
+                    if tc.use_ema:
+                        ckpt.save_adapter_checkpoint(state.unet, model_config.unet, os.path.join(out, "non_ema"),
+                                                     save_motion=tc.update_motion_modules)
+                logger.info("saved checkpoint: %s", out)
+
+            if args.validation_epoch and (epoch + 1) % args.validation_epoch == 0 and args.eval_csv_path:
+                _run_validation(args, pipe, state, model_config, task_dir, epoch)
+
             if tc.max_train_steps and global_step >= tc.max_train_steps:
                 break
-        logger.info("epoch %d: mean loss %.4f (%d steps, %.2f s/step)",
-                    epoch + 1, epoch_loss / max(n_steps, 1), n_steps, timer.mean)
 
-        if (epoch + 1) % tc.checkpoint_epoch == 0:
-            out = os.path.join(task_dir, f"epoch_{epoch + 1}")
-            # with --use_ema the checkpoint downstream consumers load is the
-            # EMA average; the live weights go to non_ema/
-            export = state.ema if tc.use_ema else None
-            if tc.train_mode == "t2i":
-                ckpt.export_pipeline({"unet": ckpt.flax_tensors(state.unet, export, "params")},
-                                     model_config, out, tc)
-            else:
-                ckpt.save_adapter_checkpoint(state.unet, model_config.unet, out,
-                                             save_motion=tc.update_motion_modules, params=export)
-                if tc.use_ema:
-                    ckpt.save_adapter_checkpoint(state.unet, model_config.unet, os.path.join(out, "non_ema"),
-                                                 save_motion=tc.update_motion_modules)
-            logger.info("saved checkpoint: %s", out)
-
-        if args.validation_epoch and (epoch + 1) % args.validation_epoch == 0 and args.eval_csv_path:
-            _run_validation(args, pipe, state, model_config, task_dir, epoch)
-
-        if tc.max_train_steps and global_step >= tc.max_train_steps:
-            break
-
-    if profiler is not None:
-        profiler.stop()
-    # the final whole-pipeline export, with the EMA weights under --use_ema
-    final = {"unet": ckpt.flax_tensors(state.unet, state.ema, "params"), "vae": pipe.vae,
-             "text_encoder": pipe.text_encoder}
-    if pipe.image_encoder is not None:
-        final["image_encoder"] = pipe.image_encoder
-    ckpt.export_pipeline(final, model_config, os.path.join(task_dir, "pipeline"), tc)
-    if step_ckpt is not None:
-        step_ckpt.wait()  # commit any in-flight save before declaring training done
+        if profiler is not None:
+            profiler.stop()
+        # the final whole-pipeline export, with the EMA weights under --use_ema
+        final = {"unet": ckpt.flax_tensors(state.unet, state.ema, "params"), "vae": pipe.vae,
+                 "text_encoder": pipe.text_encoder}
+        if pipe.image_encoder is not None:
+            final["image_encoder"] = pipe.image_encoder
+        ckpt.export_pipeline(final, model_config, os.path.join(task_dir, "pipeline"), tc)
+    except BaseException as e:
+        body_error = e
+        raise
+    finally:
+        if step_ckpt is not None:
+            _commit_saves(step_ckpt, body_error)
     metrics_log.finish()
     return {"global_step": global_step, "last_loss": epoch_loss / max(n_steps, 1), **record,
             "state_saves": step_ckpt.saves if step_ckpt is not None else []}
+
+
+def _commit_saves(step_ckpt, body_error: Optional[BaseException]) -> None:
+    """Wait until any in-flight async save is on disk.  A write error is
+    raised when the run itself succeeded; when the run raised
+    (``body_error``), the write error is logged beside it and the run's
+    error is the one that propagates."""
+    try:
+        step_ckpt.wait()
+    except Exception as write_error:  # noqa: BLE001 - reraised, or logged beside the run's error
+        if body_error is None:
+            raise
+        logger.error("the in-flight full-state save failed too: %r", write_error)
 
 
 def _run_validation(args, pipe, state, model_config, task_dir, epoch) -> list:

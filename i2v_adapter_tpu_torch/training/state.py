@@ -146,6 +146,27 @@ def _inverse(perm: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(int(i) for i in np.argsort(perm))
 
 
+def adamw_updates(grads: Params, state: OptState, params: Params, lr: float, b1: float, b2: float,
+                  eps: float, weight_decay: float) -> Params:
+    """optax's ``adamw`` update for ``grads``, whose ``state.count`` the
+    caller has already advanced to this update's: the moments in
+    ``state.mu`` / ``state.nu`` updated in place, bias-corrected with
+    ``decay ** count`` in fp32 as optax evaluates it, ``eps`` outside the
+    square root, the decay added as ``weight_decay * p`` on the old
+    parameters, the update scaled by ``-lr``."""
+    bc1 = float(np.float32(1.0) - np.float32(b1) ** np.int32(state.count))
+    bc2 = float(np.float32(1.0) - np.float32(b2) ** np.int32(state.count))
+    updates = {}
+    for n, g in grads.items():
+        mu, nu = state.mu[n], state.nu[n]
+        mu.copy_((1.0 - b1) * g + b1 * mu)
+        nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        u = u + weight_decay * params[n].detach().float()
+        updates[n] = u * (-lr)
+    return updates
+
+
 class Optimizer:
     """``optax.chain(clip_by_global_norm(max_grad_norm), inner)`` with
     ``inner`` the JAX package's ``adamw(schedule, ...)`` or
@@ -237,19 +258,8 @@ class Optimizer:
         state.count += 1
         if self.kind == "adafactor":
             return self._adafactor(grads, state, lr)
-        b1, b2 = oc.adam_beta1, oc.adam_beta2
-        # optax evaluates decay ** count in fp32
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.int32(state.count))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.int32(state.count))
-        updates = {}
-        for n, g in grads.items():
-            mu, nu = state.mu[n], state.nu[n]
-            mu.copy_((1.0 - b1) * g + b1 * mu)
-            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + oc.adam_epsilon)
-            u = u + oc.adam_weight_decay * params[n].detach().float()
-            updates[n] = u * (-lr)
-        return updates
+        return adamw_updates(grads, state, params, lr, oc.adam_beta1, oc.adam_beta2, oc.adam_epsilon,
+                             oc.adam_weight_decay)
 
     def _adafactor(self, grads: Params, state: OptState, lr: float) -> Params:
         # the decay at the count before this update, in fp32 as optax has it

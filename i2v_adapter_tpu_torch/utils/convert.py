@@ -5,9 +5,12 @@ The port's parameter names follow the Flax module names, so a Flax leaf
 
 * Dense ``kernel (in, out)``      -> ``Linear.weight (out, in)``
 * Conv ``kernel (kh, kw, in, out)`` -> ``Conv2d.weight (out, in, kh, kw)``
+* 3-D Conv ``kernel (kt, kh, kw, in, out)`` -> ``Conv3d.weight (out, in, kt, kh, kw)``
 * LayerNorm/GroupNorm ``scale``     -> ``weight``
 * Embed ``embedding``               -> ``weight``
-* everything else (biases, raw parameters) as it is.
+* everything else (biases, raw parameters) as it is, and every leaf of a
+  module whose ``flax_layout`` is true (its parameters carry the Flax
+  names and shapes, e.g. ``DenseGeneral``'s multi-axis kernels).
 
 ``load_flax_params`` is strict: a missing, extra or misshapen leaf raises.
 
@@ -49,8 +52,12 @@ def _flax_leaves(module: nn.Module, params: Mapping[str, Any]):
     for path, value in flatten_tree(params).items():
         parent, _, leaf = path.rpartition(".")
         owner = modules.get(parent)
-        if leaf == "kernel":
-            if isinstance(owner, nn.Conv2d):
+        if getattr(owner, "flax_layout", False):
+            pass
+        elif leaf == "kernel":
+            if isinstance(owner, nn.Conv3d):
+                value = value.transpose(4, 3, 0, 1, 2)
+            elif isinstance(owner, nn.Conv2d):
                 value = value.transpose(3, 2, 0, 1)
             elif isinstance(owner, nn.Linear):
                 value = value.T
@@ -180,7 +187,11 @@ def flax_leaf(modules: Mapping[str, nn.Module], name: str):
     parent, _, leaf = name.rpartition(".")
     owner = modules.get(parent)
     perm = None
-    if leaf == "weight" and isinstance(owner, nn.Conv2d):
+    if getattr(owner, "flax_layout", False):
+        pass
+    elif leaf == "weight" and isinstance(owner, nn.Conv3d):
+        leaf, perm = "kernel", (2, 3, 4, 1, 0)
+    elif leaf == "weight" and isinstance(owner, nn.Conv2d):
         leaf, perm = "kernel", (2, 3, 1, 0)
     elif leaf == "weight" and isinstance(owner, nn.Linear):
         leaf, perm = "kernel", (1, 0)
@@ -193,7 +204,7 @@ def flax_leaf(modules: Mapping[str, nn.Module], name: str):
 
 def flax_layouts(module: nn.Module, names) -> Dict[str, tuple]:
     """``{name: perm}`` for the parameters among ``names`` whose Flax layout
-    is a permutation of the PyTorch one (Linear and Conv2d weights)."""
+    is a permutation of the PyTorch one (Linear, Conv2d and Conv3d weights)."""
     modules = dict(module.named_modules())
     out = {}
     for name in names:

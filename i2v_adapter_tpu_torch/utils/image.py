@@ -3,8 +3,9 @@
 The port's own copy of what the pipeline and its entry points use from the
 JAX package's ``utils/image.py``: the VaeImageProcessor-style
 condition-image preprocessing, CLIP normalisation, the uint8 video
-postprocess, reading a condition image from a path, and GIF / MP4 export.
-GIF export needs ``imageio`` or PIL, MP4 export OpenCV.
+postprocess, reading a condition image from a path, GIF / MP4 export and
+the image grid.  GIF export needs ``imageio`` or PIL, MP4 export OpenCV,
+the grid PIL.
 """
 
 from __future__ import annotations
@@ -104,4 +105,20 @@ def export_to_mp4(frames: np.ndarray, path: str, fps: int = 8) -> str:
     for f in frames:
         writer.write(cv2.cvtColor(np.asarray(f), cv2.COLOR_RGB2BGR))
     writer.release()
+    return path
+
+
+def save_image_grid(images: np.ndarray, path: str, ncols: int = 4) -> str:
+    """(N, H, W, 3) uint8 -> one image of ``ncols`` columns, rows filled in
+    order, empty cells black."""
+    n, h, w, c = images.shape
+    ncols = min(ncols, n)
+    nrows = (n + ncols - 1) // ncols
+    grid = np.zeros((nrows * h, ncols * w, c), dtype=np.uint8)
+    for i, img in enumerate(images):
+        r, col = divmod(i, ncols)
+        grid[r * h: (r + 1) * h, col * w: (col + 1) * w] = img
+    from PIL import Image
+
+    Image.fromarray(grid).save(path)
     return path

@@ -187,6 +187,46 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, dtype, rep, n, d):
         assert _relerr(a, b) < tol, f"d{name}: {_relerr(a, b)}"
 
 
+# the latent zoo's attention sites (fp32, 4 heads, exact running max): the
+# self-attention of SimpleUNet / SimpleUNet3D at 256 tokens with D = 32
+# (widths 128 / 4) and D = 64 (256 / 4), at 1024 tokens with D = 32, where
+# training also runs K3
+ZOO_FLASH_CASES = [(32, 256, 32), (8, 256, 64), (8, 1024, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq,n,d", ZOO_FLASH_CASES)
+def test_flash_kernel_at_zoo_shapes_on_card(cuda_device, bq, n, d):
+    """K1's scalar fp32 path at the zoo's head dims, output and log2
+    logsumexp."""
+    q, k, v = _flash_inputs(cuda_device, bq, 1, n, 4, d, torch.float32, seed=bq + n + d)
+    before = A.flash_attention.launches
+    got, lse = A.flash_attention(q, k, v, static_max=0.0, with_lse=True)
+    assert A.flash_attention.launches == before + 1
+    want, want_lse = A._plain_attention(q, k, v, 1, 1 / math.sqrt(d), 0.0, with_lse=True)
+    assert _relerr(got, want) < TOL_FP32 and _relerr(lse, want_lse) < TOL_FP32
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_at_zoo_shape_on_card(cuda_device):
+    """K3's scalar fp32 path at the zoo's training site (1024 tokens, D =
+    32, 4 heads, batch 8), and FlashAttentionFn taking it there."""
+    q, k, v, o, do, lse = _grad_inputs(cuda_device, 8, 1, 1024, 4, 32, torch.float32, seed=7)
+    got = A.flash_attention_bwd(q, k, v, o, do, lse)
+    want = A._plain_flash_backward(q, k, v, o, do, lse, 1, 1 / math.sqrt(32))
+    for name, a, b in zip("qkv", got, want):
+        assert torch.isfinite(a).all() and _relerr(a, b) < TOL_FP32, f"d{name}: {_relerr(a, b)}"
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    before = dict(A.launch_counts())
+    got = torch.autograd.grad(A.dot_product_attention(q, k, v, static_max=0.0), (q, k, v), do)
+    counts = A.launch_counts()
+    assert counts["flash_attention"] - before["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    want = torch.autograd.grad(A.xla_attention(q, k, v), (q, k, v), do)
+    for name, a, b in zip("qkv", got, want):
+        assert _relerr(a, b) < TOL_FP32, f"d{name}"
+
+
 @pytest.mark.gpu
 def test_flash_attention_fn_grads_on_card(cuda_device):
     """FlashAttentionFn on the card: K1 + K3 at nk >= 1024, K1 + the plain
