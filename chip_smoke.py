@@ -44,9 +44,16 @@ Phases, one JSON line each, in order:
                    (b), (d), (e) and (f)'s shapes at the serving default and
                    one ``conv_impl='pallas'`` request: equal bit for bit,
                    launches as derived with replays counted, step ms by kind
-                   each way, capture ms, the graphs' pool; then a synthetic
+                   each way, capture ms, the graphs' pool; the step graphs
+                   kept across calls: (b) repeated and (a)'s 25 steps at
+                   (b)'s shape replay the kept entry with no capture, equal
+                   bit for bit; after FreeU on, FreeU off, int8 on, an int8
+                   weight quantised again and the trainer's validation swap
+                   the next request captures afresh, equal to 'stepwise';
+                   the kept pools within their budget; then a synthetic
                    full-width LoRA (peft and kohya layouts) merged, its int8
-                   weights quantised again, a 5-step scan request
+                   weights quantised again, a 5-step scan request capturing
+                   afresh, equal to 'stepwise'
 7. ``pretrained`` -- a full-width diffusers-layout checkpoint directory
                    (``I2VModelConfig()``, fp16, seeded random weights, the
                    77-token tokenizer) and an adapter task
@@ -64,14 +71,16 @@ Phases, one JSON line each, in order:
                    envelope, (f) a 48-frame clip (4 anchored temporal
                    windows, 5 steps); (c) and (j) fail with the worker
                    serving on, each request's launches equal the config's
-                   and its dispatch is reported ((a) takes 'auto' -> 'scan');
+                   and its dispatch is reported ((a) takes 'auto' -> 'scan',
+                   (b) replays the step graphs (a) kept);
                    (a)'s ``latency_s`` and phase times are the clip latency;
                    (d)'s full and cached, (e)'s CFG and cond-only step times
 8b. ``serve_heads`` -- ``from_pretrained`` of the same directory: with the
                    standard head, the card's memory budgets (peak memory of
                    one 512 px UNet evaluation at 32 and 64 frame-evaluations,
                    the encoder cache of one full step, one evaluation and one
-                   'scan' request at the pipeline's envelope), ``vae_tiling``'s tiled decode of 16
+                   'scan' request at the pipeline's envelope, all beside a
+                   kept 16-frame request's step graphs), ``vae_tiling``'s tiled decode of 16
                    frames at 768 px against the untiled one, and (g) a FreeU
                    request (``enable_freeu``); with (h) a plus and (i) a
                    full_face IP-Adapter file written beside the directory, one
@@ -94,6 +103,12 @@ Phases, one JSON line each, in order:
                    step's K1 / K2 / K3 launches equal the config's, no int8
                    launch; step ms, the host's data wait, save bytes and
                    seconds, the card's peak
+9c. ``latent``  -- the latent-diffusion zoo: the offline encoders on that
+                   directory, SimpleUNet3D / SimpleUNet train steps, both
+                   1000-step samplers with CFG replayed from CUDA graphs and
+                   held bit for bit to their eager loops (ms a step each
+                   way), a dome forward, the checkpoints; K1 / K3 launches
+                   as derived
 10. ``train``   -- the adapter training step at the reference workload
                    (``reference_train_config``: SD1.5 widths, 2 clips x 16
                    frames at 256 px, bf16 with
@@ -111,6 +126,11 @@ Phases, one JSON line each, in order:
                    the ``'auto'`` run's on the same draws, K4 launched twice
                    per resnet conv per step (forward + recompute)
 13. ``int8_tool`` -- ``ops.profile_int8_dense`` at a cut list of its shapes
+14. ``profilers`` -- ``ops.trace_unet`` (the per-module split of one int8
+                   evaluation's device time, its sums held to the profiler's
+                   total), ``ops.profile_unet`` (seven variants, launches as
+                   derived), ``ops.profile_motion`` and ``ops.tune`` at
+                   reduced iterations, their records checked
 
 The ``pretrained`` directory, the clips and what the driver writes live
 under ``chip_smoke_work/`` beside this script (git-ignored), removed at
@@ -1565,6 +1585,90 @@ def _synthetic_lora(unet, layout: str, seed: int) -> dict:
     return sd
 
 
+def _kept_graph_check(name, serving, kw, output, hit, run, model_cfg, latent, rehearse, failed, counts, out,
+                      first=None, int8=True, quantised=0):
+    """One ``'scan'`` request on the serving pipeline against ``first`` (its
+    ``'stepwise'`` clip, run here when not given): equal bit for bit, a hit
+    of the graph cache with no capture (``hit``) or a miss with one capture
+    (its steps are all CFG), the kept pools within ``MAX_KEPT_GRAPH_BYTES``,
+    launches as the config derives them (``quantised`` more grouped quantiser
+    launches; added to ``counts``).  Returns the stepwise clip."""
+    if first is None:
+        first, _ = run(serving, "stepwise", kw, output)
+    got, scan = run(serving, "scan", kw, output)
+    n = len(scan["timings"]["step_ms"])
+    cache, captures = scan["dispatch"].get("graph_cache", {}), scan["dispatch"].get("capture_ms", [])
+    expected = expected_counts()
+    if not rehearse:
+        expected = request_launches(model_cfg, latent, n, decode_calls=0 if output == "latent" else 1, int8=int8)
+        expected["quantize_weights"] += quantised
+    equal = bool(np.array_equal(got, first))
+    out[name] = {"graph_cache": cache, "capture_ms": captures, "equal": equal, "denoise_steps": n,
+                 "scan_step_ms": scan["timings"]["step_ms"], "scan_s": scan["seconds"],
+                 "launches": scan["launches"], "expected_launches": expected}
+    if not equal:
+        failed.append(f"kept graphs, {name}: scan differs from stepwise")
+    if cache.get("hit") is not hit or (hit and captures) or (not hit and len(captures) != (0 if rehearse else 1)):
+        failed.append(f"kept graphs, {name}: {cache}, captures {captures}, want hit={hit}")
+    if cache.get("pool_bytes", 0) > serving.MAX_KEPT_GRAPH_BYTES:
+        failed.append(f"kept graphs, {name}: pools {cache.get('pool_bytes')} bytes over "
+                      f"{serving.MAX_KEPT_GRAPH_BYTES}")
+    if scan["launches"] != expected:
+        failed.append(f"kept graphs, {name}: launches {scan['launches']} != {expected}")
+    for k in counts:
+        counts[k] += scan["launches"][k]
+    return first
+
+
+def _invalidation_checks(serving, check, failed, out) -> None:
+    """After each invalidation point -- FreeU on, FreeU off, int8 switched
+    on, an int8 weight written in place (quantised again at the next call),
+    the trainer's validation swap -- the next ``'scan'`` request captures
+    afresh and equals ``'stepwise'`` (``check``: ``_kept_graph_check``)."""
+    import types
+
+    from PIL import Image
+
+    from i2v_adapter_tpu_torch.models.layers import int8_sites
+    from i2v_adapter_tpu_torch.training.driver import _run_validation
+
+    kw = dict(seed=5, num_inference_steps=5)
+    serving.enable_freeu()
+    check("freeu_on", kw, hit=False)
+    serving.disable_freeu()
+    first = check("freeu_off", kw, hit=False)
+    serving.enable_int8_conv(True)
+    check("int8_on", kw, hit=False, first=first)
+    with torch.no_grad():  # a write nobody announces: its site is quantised again at the next call
+        int8_sites(serving.unet)[0].weight.mul_(1.0)
+    check("requantised", kw, hit=False, first=first, quantised=1)
+    # the trainer's validation: two UNet weights swapped in (.data) and back
+    # around a 256 px clip (int8 on for it, off after, as in the driver)
+    work = os.path.join(WORK_DIR, "validation")
+    os.makedirs(work, exist_ok=True)
+    size = serving.pipe_config.height
+    Image.fromarray(np.random.default_rng(8).integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+        os.path.join(work, "cond.png"))
+    with open(os.path.join(work, "eval.csv"), "w") as f:
+        f.write(f"prompt,image_path\na cat,{os.path.join(work, 'cond.png')}\n")
+    named = dict(serving.unet.named_parameters())
+    trainable = ["conv_out.weight", "conv_out.bias"]
+    trained = {n: named[n].detach().float() * 1.01 for n in trainable}
+    state = types.SimpleNamespace(ema=None, unet=serving.unet, trainable=trainable,
+                                  trainable_params=lambda: trained)
+    args = types.SimpleNamespace(eval_csv_path=os.path.join(work, "eval.csv"),
+                                 n_frames=serving.pipe_config.num_frames, resolution=size // 2)
+    t0 = time.perf_counter()
+    clips = _run_validation(args, serving, state, serving.config, work, 0)
+    out["validation"] = {"seconds": time.perf_counter() - t0, "shape": list(clips[0].shape),
+                         "entries_after": len(serving._graph_cache())}
+    shutil.rmtree(work, ignore_errors=True)
+    if out["validation"]["entries_after"]:
+        failed.append(f"kept graphs: {out['validation']['entries_after']} entries outlived the validation swap")
+    check("after_validation", kw, hit=False, int8=False)
+    serving.enable_int8_conv(True)  # back to the serving default
+
+
 def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
     """``dispatch='scan'`` against ``'stepwise'`` from the same seed at the
     shapes of the daemon's requests (b), (d), (e) and (f), at the serving
@@ -1642,7 +1746,12 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
                "peak_bytes": None if rehearse else torch.cuda.max_memory_allocated() - base}
         return out, rec
 
-    failed, lines, counts = [], {}, expected_counts()
+    failed, lines, counts, kept = [], {}, expected_counts(), {}
+
+    def check(name, kw, hit, output="latent", first=None, int8=True, quantised=0):
+        return _kept_graph_check(name, serving, kw, output, hit, run, model_cfg, latent, rehearse, failed, counts,
+                                 kept, first=first, int8=int8, quantised=quantised)
+
     for rid, (make, kw, derive, output) in requests.items():
         p = make()
         want, step = run(p, "stepwise", kw, output)
@@ -1661,6 +1770,7 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
                 "stepwise_s": step["seconds"], "scan_s": scan["seconds"],
                 "capture_ms": scan["dispatch"].get("capture_ms"),
                 "graph_pool_bytes": scan["dispatch"].get("graph_pool_bytes"),
+                "graph_cache": scan["dispatch"].get("graph_cache"),
                 "peak_bytes_stepwise": step["peak_bytes"], "peak_bytes_scan": scan["peak_bytes"],
                 "launches_stepwise": step["launches"], "launches_scan": scan["launches"],
                 "expected_launches": expected, "decode_ms": scan["timings"].get("decode_ms")}
@@ -1675,10 +1785,15 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
             failed.append(f"{rid}: {scan['dispatch']}, not {captures} captured kinds")
         if len(scan["timings"]["step_ms"]) != n:
             failed.append(f"{rid}: {len(scan['timings']['step_ms'])} scan steps, not {n}")
+        if rid == "b_five_steps":  # the kept entry replayed: (b) again, then (a)'s 25 steps at its shape
+            check("b_repeated", kw, hit=True, output=output, first=want)
+            check("a_after_b", dict(seed=0), hit=True)
     del p
     reset_launch_counts()
     serving.enable_int8_conv(True)  # the shared decoder back to int8: one more grouped quantiser launch
     load = {k: load[k] + v for k, v in launch_counts().items()}
+    _invalidation_checks(serving, check, failed, kept)
+    kept["budget_bytes"] = serving.MAX_KEPT_GRAPH_BYTES
 
     # LoRA: merge the peft file, then the kohya one, each followed by its
     # int8 weights' one grouped launch; then a 5-step scan request
@@ -1698,6 +1813,7 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
         merges[layout] = {"patched": patched, "seconds": time.perf_counter() - t0, "launches": launch_counts(),
                           "bytes": os.path.getsize(path)}
     after, rec = run(serving, "scan", kw, "latent")
+    after_stepwise, _ = run(serving, "stepwise", kw, "latent")
     shutil.rmtree(lora_dir, ignore_errors=True)
     n = len(rec["timings"]["step_ms"])
     resnets = len([m for m in serving.unet.modules() if type(m).__name__ == "ResnetBlock2D"])
@@ -1709,7 +1825,9 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
     lora = {"merges": merges, "expected_merge_launches": want_merge, "resnets": resnets,
             "max_abs_change": float(np.max(np.abs(after - before))), "finite": bool(np.isfinite(after).all()),
             "launches": rec["launches"], "expected_launches": want_after,
-            "capture_ms": rec["dispatch"].get("capture_ms"), "dispatch": rec["dispatch"].get("dispatch")}
+            "capture_ms": rec["dispatch"].get("capture_ms"), "dispatch": rec["dispatch"].get("dispatch"),
+            "graph_cache": rec["dispatch"].get("graph_cache"),
+            "equal_to_stepwise": bool(np.array_equal(after, after_stepwise))}
     for k in counts:
         counts[k] += sum(m["launches"][k] for m in merges.values()) + rec["launches"][k] + load[k]
     if merges["kohya"]["patched"] != 2 * resnets:
@@ -1719,8 +1837,13 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
     if not (lora["finite"] and lora["max_abs_change"] > 0) or rec["launches"] != want_after:
         failed.append(f"lora: clip changed {lora['max_abs_change']}, finite {lora['finite']}, "
                       f"launches {rec['launches']} != {want_after}")
-    emit({"phase": "scan", "requests": lines, "lora": lora, "load_launches": load, "launches": counts,
-          "failed": failed})
+    # the merges dropped the kept graphs: the request captured afresh
+    if lora["graph_cache"].get("hit") or not lora["equal_to_stepwise"] \
+            or len(lora["capture_ms"]) != (0 if rehearse else 1):
+        failed.append(f"lora: after the merges {lora['graph_cache']}, captures {lora['capture_ms']}, "
+                      f"equal to stepwise {lora['equal_to_stepwise']}")
+    emit({"phase": "scan", "requests": lines, "kept_graphs": kept, "lora": lora, "load_launches": load,
+          "launches": counts, "failed": failed})
     if failed:
         raise AssertionError(f"scan: {failed}")
     return counts
@@ -1886,7 +2009,8 @@ def _check_requests(model_cfg, latent, rehearse, per_request, results, specs, fa
                     "step_ms_mean": float(np.mean(step_ms)) if step_ms else None, "steps": len(step_ms),
                     "decode_ms": rec["timings"].get("decode_ms"), "launches_as_derived": rec["launches"] == expected,
                     "dispatch": rec.get("dispatch", {}).get("dispatch"),
-                    "capture_ms": rec.get("dispatch", {}).get("capture_ms")}
+                    "capture_ms": rec.get("dispatch", {}).get("capture_ms"),
+                    "graph_cache": rec.get("dispatch", {}).get("graph_cache")}
     return out
 
 
@@ -1911,7 +2035,8 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
     (e) ``cfg_cutoff: 0.5`` at 25 steps, (j) a request over the card's
     memory envelope, then (f) a 48-frame clip tiled into 4 windows; each
     request's launches are read around ``process_request`` and held to the
-    config's derivation."""
+    config's derivation; (b) replays the step graphs (a) left, with no
+    capture."""
     from PIL import Image
 
     from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
@@ -1989,6 +2114,10 @@ def phase_serve(model_cfg, dev, rehearse: bool, ckpt: dict):
     # (a), the CLI's defaults, takes 'auto' -> 'scan' (22 x 32 x 4096 eval-tokens <= 8 M)
     if not rehearse and per_request.get("a_defaults", {}).get("dispatch", {}).get("dispatch") != "scan":
         failed.append(f"a_defaults: dispatch {per_request.get('a_defaults', {}).get('dispatch')}, not 'scan'")
+    # (b) has (a)'s shape: it replays the step graphs (a) left in the cache
+    b = per_request.get("b_five_steps", {}).get("dispatch", {})
+    if not rehearse and (not b.get("graph_cache", {}).get("hit") or b.get("capture_ms")):
+        failed.append(f"b_five_steps: {b}, not a hit of the kept graphs without a capture")
     a = per_request.get("a_defaults", {}).get("timings", {})
     step_ms = a.get("step_ms") or [float("nan")]
     d_ms = per_request.get("d_encoder_cache", {}).get("timings", {}).get("step_ms", [])
@@ -2041,7 +2170,12 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
     runs alone), against the pipeline's constants; the encoder cache of one
     full step against ``_encoder_cache_elems_per_eval``; then one
     evaluation and one decoder call at the constants' envelopes, whose peaks
-    must stay inside the card's usable share."""
+    must stay inside the card's usable share.  Every measurement runs with
+    the step graphs of a 512 px 16-frame ``'scan'`` request kept (their
+    pool within ``MAX_KEPT_GRAPH_BYTES``): the evaluation at the envelope
+    must fit beside the whole pool, the decode beside what the pipeline
+    keeps beside it (``_graph_rooms``), and a ``'scan'`` request at the
+    envelope drops the kept entry and keeps none of its own."""
     from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import _encoder_cache_elems_per_eval
 
     if rehearse:
@@ -2052,6 +2186,12 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
     weights = torch.cuda.memory_allocated()
     total = torch.cuda.get_device_properties(dev).total_memory
     g = torch.Generator(device=dev).manual_seed(7)
+    image = np.random.default_rng(9).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    pipe.release_graphs()
+    pipe("a cat", condition_image=image, num_frames=16, height=512, width=512, num_inference_steps=3,
+         output_type="latent", dispatch="scan", seed=1)
+    kept = dict(pipe.last_dispatch["graph_cache"])
+    kept_bytes = kept.get("pool_bytes", 0)
 
     def peak_of_eval(evals):
         clips = evals // 16
@@ -2124,7 +2264,6 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
     # evaluations each), 2 denoise steps: the eager step, then the capture
     # and its replay, the graphs' pool in place of the eager working set
     clips = const_evals // 32
-    image = np.random.default_rng(9).integers(0, 256, (512, 512, 3), dtype=np.uint8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2138,6 +2277,7 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
                     "peak_reserved_bytes": scan_reserved, "peak_reserved_share": scan_reserved / total,
                     "graph_pool_bytes": pipe.last_dispatch.get("graph_pool_bytes"),
                     "capture_ms": pipe.last_dispatch.get("capture_ms"), "step_ms": pipe.last_timings["step_ms"],
+                    "graph_cache": pipe.last_dispatch.get("graph_cache"),
                     "finite": bool(np.isfinite(lat_out).all())}
     del lat_out
     torch.cuda.empty_cache()
@@ -2158,6 +2298,9 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
         "decode_envelope_frames": const_frames, "decode_envelope_peak_bytes": decode_at_envelope,
         "decode_envelope_peak_with_weights_share": (weights + decode_at_envelope) / total,
         "decode_envelope_finite": decode_finite, "scan_request_at_envelope": scan_request,
+        "kept_graphs": kept, "max_kept_graph_bytes": pipe.MAX_KEPT_GRAPH_BYTES,
+        "envelope_eval_with_kept_share": (weights + at_envelope + kept_bytes) / total,
+        "kept_beside_envelope_decode_bytes": min(kept_bytes, pipe._graph_rooms(0, 0, pipe.MAX_DECODE_TOKENS)[1]),
     }
     failed = []
     if cache_bytes != formula:
@@ -2167,8 +2310,17 @@ def _memory_budgets(pipe, model_cfg, dev, rehearse: bool) -> dict:
         failed.append("a budget constant exceeds what this run's measurements allow")
     if weights + at_envelope > total * MEMORY_USABLE or not finite:
         failed.append(f"one evaluation at the envelope peaked at {weights + at_envelope} bytes of {total}")
-    if weights + decode_at_envelope > total * MEMORY_USABLE or not decode_finite:
-        failed.append(f"one decode at the envelope peaked at {weights + decode_at_envelope} bytes of {total}")
+    beside = out["kept_beside_envelope_decode_bytes"]
+    if weights + decode_at_envelope + beside > total * MEMORY_USABLE or not decode_finite:
+        failed.append(f"one decode at the envelope peaked at {weights + decode_at_envelope} bytes of {total} "
+                      f"beside {beside} kept")
+    if not kept.get("kept") or not 0 < kept_bytes <= pipe.MAX_KEPT_GRAPH_BYTES:
+        failed.append(f"the 16-frame request's graphs: {kept}, budget {pipe.MAX_KEPT_GRAPH_BYTES}")
+    if weights + at_envelope + kept_bytes > total * MEMORY_USABLE:
+        failed.append(f"one evaluation at the envelope beside {kept_bytes} kept bytes: "
+                      f"{weights + at_envelope + kept_bytes} of {total}")
+    if (scan_request["graph_cache"] or {}).get("entries") != 0:
+        failed.append(f"the scan request at the envelope left {scan_request['graph_cache']}")
     if max(weights + scan_peak, scan_reserved) > total * MEMORY_USABLE or not scan_request["finite"]:
         failed.append(f"a scan request at the envelope peaked at {weights + scan_peak} bytes allocated, "
                       f"{scan_reserved} reserved, of {total}")
@@ -2651,7 +2803,9 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
     (2 clips x 16 frames with text, 1 warm-up + 4 timed steps), then 2
     ``image_only`` steps on single frames; SimpleUNet trains on the 512 px
     image latents (batch 8, 1 + 4 steps); both sample with CFG 7.5 over all
-    1000 timesteps; one SimpleUNetDome forward at (8, 64, 64, 3); each
+    1000 timesteps, each step replayed from a CUDA graph, and again through
+    the eager loop (``_sample_latents_eager``) on the same draws, equal bit
+    for bit; one SimpleUNetDome forward at (8, 64, 64, 3); each
     trained UNet's checkpoint written, read into a fresh model and compared
     bit for bit.  Every step's, sampler's and forward's K1 / K3 launches are
     held to ``launches_per_simple_eval``, no other kernel launching; the
@@ -2662,6 +2816,7 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
     from i2v_adapter_tpu_torch.tools import encode_image, encode_text, encode_video
     from i2v_adapter_tpu_torch.training.train_latent import (
         LATENT_SCHEDULE,
+        _sample_latents_eager,
         load_simple_checkpoint,
         make_latent_train_step,
         make_video_latent_train_step,
@@ -2793,23 +2948,37 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
             failed.append(f"{name}: {n_moved} of {n_params} parameters moved")
 
     # -- sampling ------------------------------------------------------------
+    # each sampler replayed from its CUDA graph (the launches counted), then
+    # its eager plain version on a generator of the same seed: equal bit for
+    # bit, ms a step each way
     samples = {}
-    for name, model, shape, ctx in (
+    for i, (name, model, shape, ctx) in enumerate((
             ("image", unet2d, (1, video_lat, video_lat, 4), image_batches[0]["text_embeds"][:1]),
-            ("video", unet3d, (1, frames, video_lat, video_lat, 4), video_batches[0]["text_embeds"][:1])):
+            ("video", unet3d, (1, frames, video_lat, video_lat, 4), video_batches[0]["text_embeds"][:1]))):
+        kw = dict(context=ctx, guidance_scale=LATENT_GUIDANCE, schedule_config=schedule)
         reset_launch_counts()
         t0 = time.perf_counter()
-        x = sample_latents(model, shape, gen, context=ctx, guidance_scale=LATENT_GUIDANCE, schedule_config=schedule)
+        x = sample_latents(model, shape, torch.Generator(device=dev).manual_seed(20 + i), **kw)
         sync()
         seconds = time.perf_counter() - t0
         per_step = launches_per_simple_eval(zoo, video_lat, video=name == "video", frames=frames)
         want = held(f"{name} sampler", [{"launches": launch_counts()}],
                     {k: timesteps * v for k, v in per_step.items()})
+        t0 = time.perf_counter()
+        eager = _sample_latents_eager(model, shape, torch.Generator(device=dev).manual_seed(20 + i), **kw)
+        sync()
+        eager_s = time.perf_counter() - t0
         samples[name] = {"shape": list(x.shape), "seconds": seconds, "ms_per_step": seconds * 1e3 / timesteps,
+                         "eager_seconds": eager_s, "eager_ms_per_step": eager_s * 1e3 / timesteps,
+                         "equal_to_eager": bool(torch.equal(x, eager)),
+                         "max_abs_diff_eager": float((x - eager).abs().max()),
                          "finite": bool(torch.isfinite(x).all()), "std": float(x.float().std()),
                          "launches": want}
         if not samples[name]["finite"]:
             failed.append(f"{name} sample not finite")
+        if not samples[name]["equal_to_eager"]:
+            failed.append(f"{name} sampler: replay differs from the eager loop by "
+                          f"{samples[name]['max_abs_diff_eager']}")
 
     # -- the dome ---------------------------------------------------------
     dome = SimpleUNetDome(device=dev)
@@ -2872,6 +3041,122 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
     if failed:
         raise AssertionError(f"latent: {failed}")
     return total
+
+
+# trace_unet's per-module sums against the profiler's own kernel total
+TRACE_SUM_REL_MAX = 0.01
+
+
+def _tool_records(tool, argv, model_cfg):
+    """``tool.main(argv, model_cfg)`` with its standard output captured:
+    (exit code, its JSON records, its closing line, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(argv, model_config=model_cfg)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, [json.loads(line) for line in lines[:-1]], lines[-1] if lines else None, time.perf_counter() - t0
+
+
+def phase_profilers(model_cfg, dev, rehearse: bool) -> None:
+    """The four profilers through their ``main`` at reduced iterations:
+    ``ops.trace_unet`` (one 512 px 16-frame int8 evaluation; its per-module
+    sums equal the profiler's own kernel total within
+    ``TRACE_SUM_REL_MAX``), ``ops.profile_unet`` (every variant timed from a
+    graph of 2 evaluations, its K1 / K2 / K4 launches per evaluation as the
+    variant's config derives them, none in ``attention_sdpa``),
+    ``ops.profile_motion`` (every level and variant timed, K2 / K6 launches
+    as their routes give them; the decode at slices 2 and 16) and
+    ``ops.tune`` (K1 and SDPA rows at every site in both layouts, K1 within
+    its tolerance).  Each tool's closing line is the card's nvidia-smi
+    line.  Their launches are not the main path's and are not counted."""
+    from i2v_adapter_tpu_torch.ops import profile_motion, profile_unet, trace_unet, tune
+
+    small = ["--device", "cpu", "--size", "32", "--frames", "2"] if rehearse else []
+    lat = (32 if rehearse else 512) // model_cfg.vae.spatial_scale_factor
+    card = None if rehearse else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    failed, line = [], {"phase": "profilers"}
+    runs = {"trace_unet": (trace_unet, small + ["--evals", "1", "--top", "12"]),
+            "profile_unet": (profile_unet, small + ["--evals", "2"]),
+            "profile_motion": (profile_motion,
+                               small + ["--iters", "4", "--decode-slices", "2" if rehearse else "2,16"]),
+            "tune": (tune, (["--device", "cpu"] if rehearse else []) + ["--iters", "3"])}
+    records = {}
+    for name, (tool, argv) in runs.items():
+        reset_launch_counts()
+        rc, records[name], closing, seconds = _tool_records(tool, argv, model_cfg)
+        line[f"{name}_s"] = seconds
+        if rc != 0 or not records[name] or closing != (card or "cpu (plain math, no device times)"):
+            failed.append(f"{name}: exit {rc}, {len(records[name])} records, closing line {closing!r}")
+    reset_launch_counts()
+
+    # trace_unet: the module split of the step's device time
+    by = {r["result"]: r for r in records["trace_unet"]}
+    summary = by.get("summary", {})
+    line["trace_unet"] = {"summary": summary, "by_module_kind_ms": by.get("by_module_kind", {}).get("ms"),
+                          "top_modules_ms": by.get("top_modules", {}).get("ms"),
+                          "elementwise": {k: by.get("elementwise", {}).get(k)
+                                          for k in ("total_ms", "by_module_kind_ms", "top_modules_ms")}}
+    if not rehearse:
+        total = summary.get("profiler_kernel_ms") or 0.0
+        if not total or abs(summary.get("module_sum_ms", 0.0) - total) > TRACE_SUM_REL_MAX * total:
+            failed.append(f"trace_unet: module sum {summary.get('module_sum_ms')} ms against the profiler's {total}")
+        # the whole evaluation runs inside the UNet's own range
+        if summary.get("outside_ms", 0.0) > TRACE_SUM_REL_MAX * total:
+            failed.append(f"trace_unet: {summary.get('outside_ms')} ms charged to no module")
+
+    # profile_unet: each variant's launches as its config derives them
+    variants = {name: (ucfg, sdpa) for name, ucfg, sdpa in profile_unet.variants(model_cfg.unet)}
+    line["profile_unet"] = {}
+    for r in records["profile_unet"]:
+        ucfg, sdpa = variants[r["variant"]]
+        flash, temporal = (0, 0) if sdpa else launches_per_unet_eval(ucfg, lat, ucfg.use_i2v_adapter)
+        want = expected_counts() if rehearse else expected_counts(
+            flash_attention=flash, temporal_attention_cs=temporal,
+            conv3x3_kernel=conv_launches_per_unet_eval(ucfg) if ucfg.conv_impl == "pallas" else 0)
+        line["profile_unet"][r["variant"]] = {"per_eval_ms": r["per_eval_ms"], "launches_per_eval":
+                                              r["launches_per_eval"], "expected": want}
+        if r["launches_per_eval"] != want or not r["finite"] or (not rehearse and not r["per_eval_ms"]):
+            failed.append(f"profile_unet {r['variant']}: {r}, want launches {want}")
+    if len(records["profile_unet"]) != len(variants):
+        failed.append(f"profile_unet: {len(records['profile_unet'])} records for {len(variants)} variants")
+
+    # profile_motion: K2 where S >= 128 under 'auto', K6 at every S
+    line["profile_motion"] = []
+    per_kernel = {"full_motion_module": 2, "temporal_attn_k2": 1, "temporal_attn_k6": 1}
+    for r in records["profile_motion"]:
+        line["profile_motion"].append({k: r.get(k) for k in ("variant", "side", "channels", "decode_slice", "ms")})
+        if r["variant"] == "vae_decode":
+            ok = r["finite"]
+        else:
+            n = per_kernel.get(r["variant"], 0)
+            if r["variant"] != "temporal_attn_k6" and r["tokens"] < 128:
+                n = 0
+            want = expected_counts() if rehearse else expected_counts(temporal_attention_cs=n)
+            ok = r["finite"] and r["launches_per_call"] == want
+        if not ok or (not rehearse and not r["ms"]):
+            failed.append(f"profile_motion: {r}")
+    n_motion = 7 * len(profile_motion.sites(model_cfg, 32 if rehearse else 512)) + (1 if rehearse else 2)
+    if len(records["profile_motion"]) != n_motion:
+        failed.append(f"profile_motion: {len(records['profile_motion'])} records, want {n_motion}")
+
+    # tune: K1 and SDPA at every site and layout
+    line["tune"] = [{k: r.get(k) for k in ("site", "layout", "k1_ms", "k1_tflops", "sdpa_ms", "sdpa_tflops",
+                                           "plain_ms", "bound_ms", "rel_err")} for r in records["tune"]]
+    got = [(r["site"], r["layout"]) for r in records["tune"]]
+    if got != [(site[0], layout) for site in tune.SITES for layout in tune.LAYOUTS]:
+        failed.append(f"tune: rows {got}")
+    for r in records["tune"]:
+        if not (r["ok"] and r["k1_launched"]) or (not rehearse and not (r["k1_ms"] and r["sdpa_ms"])):
+            failed.append(f"tune: {r}")
+    line["failed"] = failed
+    emit(line)
+    if failed:
+        raise AssertionError(f"profilers: {failed}")
 
 
 def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase: str = "train",
@@ -3190,6 +3475,7 @@ def main(argv=None) -> int:
     fused_train_counts = phase_train(fused_cfg, dev, rehearse, steps=PALLAS_TRAIN_STEPS,
                                      phase="train_pallas", first_loss=first_loss)[3]
     tool_counts = phase_int8_tool(dev, rehearse)
+    phase_profilers(model_cfg, dev, rehearse)
     if rows is not None:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,

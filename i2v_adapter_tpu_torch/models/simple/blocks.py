@@ -62,7 +62,7 @@ class AlphaBlender(nn.Module):
         elif self.learned:
             alpha = torch.sigmoid(self.mix_factor)[0]
         else:
-            alpha = torch.tensor(self.alpha, device=spatial.device)
+            alpha = torch.full((), self.alpha, device=spatial.device)  # no host copy: capturable
         alpha = alpha.to(spatial.dtype)
         return alpha * spatial + (1.0 - alpha) * temporal
 

@@ -159,7 +159,7 @@ def quantize_weight(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return quantize_weights([kernel])[0]
 
 
-def _weights_key(weight: torch.Tensor) -> tuple:
+def weights_key(weight: torch.Tensor) -> tuple:
     """What identifies one version of a parameter's values: its storage, its
     in-place write count and its dtype (an inference tensor has no write
     count: it cannot be written outside inference mode)."""
@@ -175,12 +175,12 @@ def prepare_weights(params: Sequence[torch.nn.Parameter]) -> int:
     ws)`` pair (kept on the parameter) is missing or stale -- written, cast
     or moved since -- in one grouped launch on the card; returns how many
     were quantised."""
-    stale = [w for w in params if w.__dict__.get("_int8_weights", (None,))[0] != _weights_key(w)]
+    stale = [w for w in params if w.__dict__.get("_int8_weights", (None,))[0] != weights_key(w)]
     if stale:
         with torch.no_grad():
             pairs = quantize_weights([w.permute(2, 3, 1, 0) for w in stale])
         for w, (wq, ws) in zip(stale, pairs):
-            w._int8_weights = (_weights_key(w), wq, ws)
+            w._int8_weights = (weights_key(w), wq, ws)
     return len(stale)
 
 

@@ -8,12 +8,13 @@ K3 ``attention.flash_attention`` / ``flash_attention_bwd``, K2
 ``int8.quantize_weights``).  A CUDA graph records a wrapper's launch once,
 at capture, where nothing runs, and runs it at every replay: the scan
 dispatch takes a capture's counts back (``restore``) and adds them at each
-replay (``add``), so the counts stay the launches that ran.
+replay (``add``), so the counts stay the launches that ran: ``capture``
+and ``replay`` do both.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 
 def _wrappers():
@@ -47,3 +48,28 @@ def restore(counts: Dict[str, int]) -> None:
 def add(delta: Dict[str, int]) -> None:
     for w in _wrappers():
         w.launches += delta.get(w.__name__, 0)
+
+
+def capture(body: Callable[[], None], pool=None) -> Tuple["torch.cuda.CUDAGraph", Dict[str, int]]:
+    """Capture ``body()`` into a CUDA graph on the current stream (in
+    ``pool``, another graph's memory pool, when given); returns the graph
+    and the launches it recorded, which are not counted now (nothing ran)
+    but at each ``replay``.  A failed capture raises."""
+    import torch
+
+    before = snapshot()
+    graph = torch.cuda.CUDAGraph()
+    graph.capture_begin(pool=pool)
+    try:
+        body()
+    finally:
+        graph.capture_end()
+    counts = since(before)
+    restore(before)
+    return graph, counts
+
+
+def replay(graph: "torch.cuda.CUDAGraph", counts: Dict[str, int]) -> None:
+    """Run a captured graph and count its launches."""
+    graph.replay()
+    add(counts)

@@ -16,7 +16,9 @@ two opt-in serving approximations); ``__call__`` drives the denoise loop
 either eagerly, one step at a time (``dispatch='stepwise'``), or from
 static buffers with each step kind replayed from a CUDA graph
 (``dispatch='scan'``, ``StepGraphs``: the counterpart of the JAX package's
-one fused ``lax.scan`` program); ``'auto'`` picks as the JAX package does.
+one fused ``lax.scan`` program, kept per shape bucket across calls as the
+JAX package keeps its compiled samplers in ``_sampler_cache``); ``'auto'``
+picks as the JAX package does.
 Clips longer than the motion modules' cap are denoised in anchored
 temporal windows (``pipelines.tiling``), the UNet can run the CFG-doubled
 batch in chunks (``unet_chunk``), and the decode can be sliced or tiled.
@@ -35,11 +37,13 @@ int8 is switched on and after a LoRA merge.  ``load_lora_weights`` and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import glob
+import itertools
 import os
 import time
-from typing import List, Mapping, Optional, Sequence, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,6 +62,7 @@ from i2v_adapter_tpu_torch.models.vae import decode_sliced, decode_tiled
 from i2v_adapter_tpu_torch.ops import launches
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
 from i2v_adapter_tpu_torch.ops.freeu import FreeUParams
+from i2v_adapter_tpu_torch.ops.int8 import weights_key
 from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_call, window_weight_tensors
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
 from i2v_adapter_tpu_torch.utils import convert
@@ -118,21 +123,25 @@ def _scan_stream(device: torch.device) -> "torch.cuda.Stream":
 class StepGraphs:
     """The ``dispatch='scan'`` denoise loop: every step reads and writes
     static buffers (the latents, the timesteps ``t`` and ``t_prev`` as
-    device scalars, the eta noise), so a step kind ("cfg", "full",
-    "cached", "cond"; ``step_kinds``) is one fixed program.
+    device scalars, the eta noise, the consts: condition latents, text
+    states and image embeds), so a step kind ("cfg", "full", "cached",
+    "cond"; ``step_kinds``) is one fixed program.
 
     On the card the first step of a kind runs eagerly (the warm-up that
     capture needs; its result is the step's), the kind's second step is
     captured into a CUDA graph and replayed, and every later step of the
     kind is a replay: no host work inside a step beyond writing ``t``,
     ``t_prev`` and the noise into their buffers, and no host sync.  Graphs
-    alive together share one private memory pool; ``release(kind)`` drops a
-    kind's graph after its last step and ``close()`` all of them, so the
-    memory is the decoder's again (the allocator returns a released pool's
-    blocks to the card when an allocation needs them).  The
-    launch counters count
-    each replay (``ops.launches``).  On the CPU every step runs the same
-    static-buffer program eagerly.  With ``eta > 0`` the noise is drawn from
+    alive together share one private memory pool.  The pipeline keeps one
+    ``StepGraphs`` per shape bucket across calls (``load`` copies a call's
+    consts and starting latents into the buffers the graphs read, so a
+    later call replays what an earlier one captured); a loop that is not
+    kept drops a kind's graph after its last step (``release``) and all of
+    them at the end (``close``), so the memory is the decoder's again (the
+    allocator returns a released pool's blocks to the card when an
+    allocation needs them).  The launch counters count each replay
+    (``ops.launches``).  On the CPU every step runs the same static-buffer
+    program eagerly.  With ``eta > 0`` the noise is drawn from
     ``generator`` before each step, in the order the stepwise loop draws it,
     so both dispatches give the same clip.  A capture or replay that fails
     raises; there is no fallback to the eager loop."""
@@ -149,8 +158,19 @@ class StepGraphs:
         self.noise = torch.empty_like(self.latents) if eta > 0.0 else None
         self.caches = None  # the last 'full' step's down-path features
         self.graphs, self.counts, self.seen = {}, {}, set()
-        self.capture_ms: List[float] = []
+        self.capture_ms: List[float] = []  # this call's captures
         self.pool_bytes = 0  # the card memory the captures reserved
+
+    def load(self, consts, latents: torch.Tensor, generator=None) -> None:
+        """Start another call on the kept buffers: its consts and starting
+        latents copied in place (the graphs read them by address), its
+        generator for the eta noise."""
+        for dst, src in zip(self.consts, consts):
+            if dst is not None:
+                dst.copy_(src)
+        self.latents.copy_(latents)
+        self.generator = generator
+        self.capture_ms = []
 
     def _body(self, kind: str) -> None:
         args = (self.consts, self.latents, self.t, self.tp)
@@ -172,8 +192,7 @@ class StepGraphs:
         if kind not in self.graphs and self.cuda and kind in self.seen:
             self._capture(kind)
         if kind in self.graphs:
-            self.graphs[kind].replay()
-            launches.add(self.counts[kind])
+            launches.replay(self.graphs[kind], self.counts[kind])
         else:
             self._body(kind)
             self.seen.add(kind)
@@ -186,26 +205,14 @@ class StepGraphs:
         if torch.cuda.mem_get_info()[0] < 2 * (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()):
             torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        before = launches.snapshot()
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
         # graphs alive together share the first one's pool (they replay in
         # the order they were captured); a graph with none alive beside it
-        # starts a pool of its own
+        # starts a pool of its own.  Captured on the current (side) stream.
         shared = next(iter(self.graphs.values()), None)
-        if shared is not None:  # capture on the current (side) stream
-            graph.capture_begin(pool=shared.pool())
-        else:
-            graph.capture_begin()
-        try:
-            self._body(kind)
-        finally:
-            graph.capture_end()
+        self.graphs[kind], self.counts[kind] = launches.capture(
+            lambda: self._body(kind), pool=shared.pool() if shared is not None else None)
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
-        # nothing ran at capture: its counts are added back at each replay
-        self.counts[kind] = launches.since(before)
-        launches.restore(before)
-        self.graphs[kind] = graph
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
 
     def release(self, kind: str) -> None:
@@ -374,6 +381,7 @@ class I2VAdapterPipeline:
         )
         self.unet.set_int8(enabled)
         self.vae.set_int8(enabled)
+        self.release_graphs()
         self.prepare_int8()
 
     def prepare_int8(self) -> int:
@@ -381,15 +389,21 @@ class I2VAdapterPipeline:
         stale (built, cast, moved or written since), in one grouped kernel
         launch on the card; returns how many sites were quantised.  Run when
         the pipeline is built, when int8 is switched on, after a LoRA merge
-        and at the start of every call (a no-op while nothing changed)."""
-        return prepare_int8(self.unet, self.vae)
+        and at the start of every call (a no-op while nothing changed).
+        Quantising stores new ``(wq, ws)`` tensors, so the kept step graphs,
+        which read the old ones by address, are dropped."""
+        quantised = prepare_int8(self.unet, self.vae)
+        if quantised:
+            self.release_graphs()
+        return quantised
 
     def load_lora_weights(self, path: str, scale: float = 1.0) -> int:
         """Merge a LoRA checkpoint (peft or kohya layout; ``utils.lora``) into
         the UNet's weights; returns the number of patched layers.  The
-        patched int8 sites are quantised again at once; CUDA graphs live
-        within one call, so none outlives the merge."""
+        patched int8 sites are quantised again at once, and the kept step
+        graphs are dropped (the next ``'scan'`` call captures afresh)."""
         patched = lora.merge_lora(self.unet, convert.load_state_dict(path), scale)
+        self.release_graphs()
         self.prepare_int8()
         return patched
 
@@ -406,16 +420,67 @@ class I2VAdapterPipeline:
             raise ValueError(f"unrecognized textual-inversion format: {list(sd)[:4]}")
         lora.load_textual_inversion(self.text_encoder, self.tokenizer, np.asarray(emb), token)
         self.config = self.config.replace(text_encoder=self.text_encoder.config)
+        self.release_graphs()
 
     def enable_freeu(self, s1: float = 0.9, s2: float = 0.2, b1: float = 1.2, b2: float = 1.4) -> None:
         """FreeU skip re-weighting on the UNet's up path (``VideoUNetConfig.
         freeu``); the weights are unchanged, so nothing is reloaded."""
         self.config = self.config.replace(unet=self.config.unet.replace(freeu=(s1, s2, b1, b2)))
         self.unet.set_freeu(FreeUParams(s1, s2, b1, b2))
+        self.release_graphs()
 
     def disable_freeu(self) -> None:
         self.config = self.config.replace(unet=self.config.unet.replace(freeu=None))
         self.unet.set_freeu(None)
+        self.release_graphs()
+
+    # ------------------------------------------------------------------
+    # the kept step graphs (the JAX package's ``_sampler_cache``)
+    # ------------------------------------------------------------------
+
+    def _graph_cache(self) -> "collections.OrderedDict[tuple, StepGraphs]":
+        """The ``'scan'`` step programs kept across calls, one ``StepGraphs``
+        per shape bucket, least recently used first.  Made on first use
+        (``__dict__.setdefault``), so a pipeline built without ``__init__``
+        has one too."""
+        return self.__dict__.setdefault("_graphs", collections.OrderedDict())
+
+    def release_graphs(self) -> None:
+        """Drop every kept step program and its pool: where the JAX package
+        clears its ``_sampler_cache`` (FreeU on or off, int8 on or off, a
+        LoRA merge, a textual inversion), when the int8 weights are
+        quantised again, and when a caller swaps the UNet's weights (the
+        trainer's validation; the daemon after a failed request)."""
+        self._graph_cache().clear()
+
+    def _graph_weights_changed(self) -> bool:
+        """Whether any UNet parameter or buffer was replaced or written in
+        place since the last check (its storage and write count,
+        ``ops.int8.weights_key``): a kept graph would read the old values,
+        so the caller drops them."""
+        seen = tuple(weights_key(t) for t in itertools.chain(self.unet.parameters(), self.unet.buffers()))
+        changed = self.__dict__.get("_graph_weights") != seen
+        self._graph_weights = seen
+        return changed
+
+    def _trim_graphs(self, room: int, spare: Optional[tuple] = None) -> None:
+        """Drop kept step programs, least recently used first, until the
+        pools of those but ``spare``'s hold at most ``room`` bytes."""
+        cache = self._graph_cache()
+        others = [key for key in cache if key != spare]
+        while others and sum(cache[key].pool_bytes for key in others) > room:
+            del cache[others.pop(0)]
+
+    def _graph_rooms(self, eval_tokens: int, cache_bytes: int, decode_tokens: int) -> Tuple[int, int]:
+        """Bytes the kept step graphs may hold beside a request's denoise
+        (``eval_tokens`` frame-evaluations x latent tokens at once, its
+        encoder cache) and beside its decode (``decode_tokens`` decoded
+        frames x latent tokens per decoder call), within
+        ``MAX_KEPT_GRAPH_BYTES``."""
+        room = self.MAX_DECODE_TOKENS * self.DECODE_TOKEN_BYTES
+        denoise = room - 2 * eval_tokens * self.EVAL_TOKEN_BYTES - cache_bytes
+        decode = room - decode_tokens * self.DECODE_TOKEN_BYTES
+        return min(self.MAX_KEPT_GRAPH_BYTES, denoise), min(self.MAX_KEPT_GRAPH_BYTES, decode)
 
     # ------------------------------------------------------------------
     # the parts
@@ -466,6 +531,11 @@ class I2VAdapterPipeline:
         ``decode_slice`` select the tiled or sliced decode."""
         cfg, pcfg = self.config, self.pipe_config
         dev, dtype, schedule = self.device, self.dtype, self.schedule
+        # the step functions hold the UNet, not the pipeline: a kept
+        # StepGraphs referring back to its pipeline would make a reference
+        # cycle, and a dropped pipeline's graphs would hold their pools until
+        # the cyclic collector ran
+        unet = self.unet
         scale = cfg.vae.scaling_factor
         f = num_frames
         sf = cfg.vae.spatial_scale_factor
@@ -527,8 +597,7 @@ class I2VAdapterPipeline:
         def unet_eval(x, t, text_states, image_embeds, **kw):
             ts = t.float().expand(x.shape[0]) if torch.is_tensor(t) else torch.full(
                 (x.shape[0],), float(t), device=dev)
-            return self.unet(x.to(dtype), ts, text_states, image_embeds, enable_cross_frame_attn=has_condition,
-                             **kw)
+            return unet(x.to(dtype), ts, text_states, image_embeds, enable_cross_frame_attn=has_condition, **kw)
 
         def chunks(n):
             per = n // unet_chunk if unet_chunk > 1 and n % unet_chunk == 0 else n
@@ -674,6 +743,24 @@ class I2VAdapterPipeline:
     # the card these budgets were measured on (named in their errors)
     MEMORY_BUDGET_CARD: str = "NVIDIA H100 80GB HBM3"
 
+    # The same record's slopes: bytes of one UNet evaluation per
+    # frame-evaluation x latent token (89.4 MB / 4096), and of one decoder
+    # call per decoded frame x latent token (1.21 GB / 4096).  They size
+    # what a request leaves for the kept step graphs.
+    EVAL_TOKEN_BYTES: int = 21_830
+    DECODE_TOKEN_BYTES: int = 295_400
+
+    # The pools of the step graphs kept across 'scan' calls (one entry per
+    # shape bucket, least recently used dropped first) hold at most this
+    # together, and at most what the request being served leaves of the
+    # decode envelope's bytes (MAX_DECODE_TOKENS x DECODE_TOKEN_BYTES, the
+    # card's room beside the weights): beside its denoise, less twice its
+    # evaluation's bytes (a pool reserves up to about twice the eager step)
+    # and its encoder cache; beside its decode, less the decode's bytes.  A
+    # request whose own pool would not fit beside its decode is captured
+    # for the call and released before the decode.
+    MAX_KEPT_GRAPH_BYTES: int = 16_000_000_000
+
     # dispatch='auto' takes the scan when the clip's UNet work (steps x
     # frame-evaluations x latent tokens, every temporal window counted) is at
     # most this: the JAX package's rule and constant, so that one request
@@ -723,17 +810,28 @@ class I2VAdapterPipeline:
             t1 = self._sync()
         return latents
 
-    def _denoise_scan(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None):
+    def _denoise_scan(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None,
+                      keep: Optional[tuple] = None):
         """The same loop from ``StepGraphs``, on a side stream of the card
         (the current stream waits for it at the end).  Step times are CUDA
-        events read once after the loop (``last_timings["step_ms"]``); the
-        captures' host time goes to ``last_dispatch["capture_ms"]``, the
-        graphs' pool to ``last_dispatch["graph_pool_bytes"]``.  The graphs
-        and their pool are released before the decode."""
+        events read once after the loop (``last_timings["step_ms"]``); this
+        call's captures' host time goes to ``last_dispatch["capture_ms"]``,
+        the loop's pool to ``last_dispatch["graph_pool_bytes"]``.  With
+        ``keep`` (the shape bucket's key) the loop is kept in the graph
+        cache for later calls: found there, it takes this call's consts and
+        starting latents into its buffers and replays the kinds it captured
+        before (``last_dispatch["graph_cache"]["hit"]``).  Without it the
+        graphs and their pool are released by the end of the loop."""
         ts, prev = parts[3], parts[4]
         kinds = step_kinds(len(ts), encoder_cache, n_cfg)
         last_use = {kind: i for i, kind in enumerate(kinds)}
         cuda = self.device.type == "cuda"
+        cache = self._graph_cache()
+        loop = cache.pop(keep, None) if keep is not None else None
+        hit = loop is not None
+        if not hit:  # its buffers made on the current stream, before the side stream waits for it
+            loop = StepGraphs(parts, consts, latents, generator, self.pipe_config.eta)
+            self._graph_builds = self.__dict__.get("_graph_builds", 0) + 1
         side = None
         if cuda:
             # blocks cached by earlier work (a previous clip's decode) go back
@@ -752,13 +850,14 @@ class I2VAdapterPipeline:
             event.record()
             return event
 
-        loop = StepGraphs(parts, consts, latents, generator, self.pipe_config.eta)
         with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+            if hit:
+                loop.load(consts, latents, generator)
             for i, (kind, t, tp) in enumerate(zip(kinds, ts, prev)):
                 start = mark()
                 loop.step(kind, t, tp)
                 marks.append((start, mark()))
-                if last_use[kind] == i:
+                if keep is None and last_use[kind] == i:
                     loop.release(kind)
         if cuda:
             torch.cuda.current_stream(self.device).wait_stream(side)
@@ -766,10 +865,15 @@ class I2VAdapterPipeline:
             step_ms = [a.elapsed_time(b) for a, b in marks]
         else:
             step_ms = [(b - a) * 1e3 for a, b in marks]
-        latents = loop.latents
-        loop.close()
+        if keep is None:
+            latents = loop.latents
+            loop.close()
+        else:  # the buffer is the next call's: hand out a copy
+            latents = loop.latents.clone()
+            cache[keep] = loop
         self.last_timings["step_ms"] = step_ms
-        self.last_dispatch.update(capture_ms=loop.capture_ms, graph_pool_bytes=loop.pool_bytes)
+        self.last_dispatch.update(capture_ms=loop.capture_ms, graph_pool_bytes=loop.pool_bytes,
+                                  graph_cache={"hit": hit, "builds": self._graph_builds})
         return latents
 
     def _sync(self) -> float:
@@ -803,11 +907,11 @@ class I2VAdapterPipeline:
                 f"{max(1, self.MAX_DECODE_TOKENS // tokens)} (frames per decoder call), "
                 f"vae_tiling=True, or memory_unsafe=True on a larger device.")
 
-    def _check_encoder_cache_budget(self, num_frames: int, height: int, width: int, batch: int,
-                                    use_cfg: bool, window: Optional[int]) -> None:
-        """Refuse an ``encoder_cache=2`` request whose cached down-path
-        features (every window's and chunk's, alive across the step pair)
-        exceed ``MAX_ENC_CACHE_BYTES``."""
+    def _encoder_cache_bytes(self, num_frames: int, height: int, width: int, batch: int, use_cfg: bool,
+                             window: Optional[int]) -> Tuple[int, int]:
+        """``encoder_cache=2``'s cached frame-evaluations (every window's and
+        chunk's, alive across the step pair) and their down-path features'
+        bytes."""
         sf = self.config.vae.spatial_scale_factor
         if window is not None:
             stride = max(1, min(self.pipe_config.temporal_stride, window - 1))
@@ -815,8 +919,15 @@ class I2VAdapterPipeline:
         else:
             frames = num_frames
         cached_evals = frames * batch * (2 if use_cfg else 1)
-        cache_bytes = (cached_evals * _encoder_cache_elems_per_eval(self.config.unet, height // sf, width // sf)
-                       * (2 if self.pipe_config.dtype == "bfloat16" else 4))
+        return cached_evals, (cached_evals * _encoder_cache_elems_per_eval(self.config.unet, height // sf, width // sf)
+                              * (2 if self.pipe_config.dtype == "bfloat16" else 4))
+
+    def _check_encoder_cache_budget(self, num_frames: int, height: int, width: int, batch: int,
+                                    use_cfg: bool, window: Optional[int]) -> None:
+        """Refuse an ``encoder_cache=2`` request whose cached down-path
+        features (every window's and chunk's, alive across the step pair)
+        exceed ``MAX_ENC_CACHE_BYTES``."""
+        cached_evals, cache_bytes = self._encoder_cache_bytes(num_frames, height, width, batch, use_cfg, window)
         if cache_bytes > self.MAX_ENC_CACHE_BYTES:
             raise ValueError(
                 f"encoder_cache=2 would hold ~{cache_bytes / 1e9:.1f} GB of down-path features "
@@ -875,7 +986,11 @@ class I2VAdapterPipeline:
         * ``dispatch``: ``'stepwise'`` runs the eager loop, one synchronised
           device pass per denoise step; ``'scan'`` runs the loop from static
           buffers, each step kind replayed from a CUDA graph with no host
-          sync (``StepGraphs``), equal to ``'stepwise'``; ``'auto'`` takes
+          sync (``StepGraphs``), equal to ``'stepwise'``; the graphs are
+          kept per shape bucket for later calls, as the JAX package keeps
+          its compiled samplers (``last_dispatch["graph_cache"]``: hit or
+          miss, kept or not, the entries and their pool bytes; the memory
+          rule is ``MAX_KEPT_GRAPH_BYTES``'s); ``'auto'`` takes
           ``'scan'`` when the clip's UNet work is at most
           ``SCAN_DISPATCH_MAX_WORK`` eval-tokens and no callback is given,
           as the JAX package decides.  ``last_dispatch["dispatch"]`` says
@@ -951,15 +1066,16 @@ class I2VAdapterPipeline:
             decode_slice = 32
         if decode_slice == 0 and tokens > 4096 and batch * num_frames > 8:
             decode_slice = 2
+        frames = batch * num_frames
+        frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
+        # decode_tiled's tiles are at most 64 latents a side
+        decode_tokens = frames * (min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
         if not memory_unsafe:
             self._check_memory_envelope(concurrent_evals, height, width, batch)
             if encoder_cache > 1:
                 self._check_encoder_cache_budget(num_frames, height, width, batch, use_cfg, window)
             if output_type != "latent":
-                frames = batch * num_frames
-                frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
-                # decode_tiled's tiles are at most 64 latents a side
-                self._check_decode_envelope(frames, min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
+                self._check_decode_envelope(frames, decode_tokens // frames)
         dispatch = self._resolve_dispatch(dispatch, callback, steps, batch, num_frames, window, use_cfg, tokens)
         init_latents = None
         if latents is not None and not has_condition:
@@ -991,14 +1107,38 @@ class I2VAdapterPipeline:
         )
         prep_fn, decode_fn, ts = parts[0], parts[2], parts[3]
         self.prepare_int8()  # a no-op unless a weight changed since the last call
+        n_cfg = cfg_steps(cfg_cutoff, len(ts))
+        # the kept step graphs: dropped if the UNet's weights changed, trimmed
+        # to what this request leaves beside its denoise and its decode
+        cache_bytes = self._encoder_cache_bytes(num_frames, height, width, batch, use_cfg, window)[1] \
+            if encoder_cache > 1 else 0
+        beside_denoise, beside_decode = self._graph_rooms(
+            concurrent_evals * tokens, cache_bytes, 0 if output_type == "latent" else decode_tokens)
+        key = None
+        if dispatch == "scan":
+            if self._graph_weights_changed():
+                self.release_graphs()
+            # the bucket: what the step programs bake in as Python values
+            # (steps and strength are not among them: t and t_prev are
+            # device scalars), and the order the kinds are captured in
+            # (pooled graphs replay in capture order)
+            kinds = tuple(dict.fromkeys(step_kinds(len(ts), encoder_cache, n_cfg)))
+            key = (batch, num_frames, height, width, float(guidance), use_cfg, has_condition, unet_chunk,
+                   encoder_cache, kinds, self.config, self.pipe_config)
+            if 2 * concurrent_evals * tokens * self.EVAL_TOKEN_BYTES > beside_decode:
+                key = None  # its pool would not fit beside its decode: captured for this call only
+        self._trim_graphs(beside_denoise, spare=key)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         t0 = self._sync()
         latents, consts = prep_fn(text_ids, cond, clip_img, gen, init_latents=init_latents)
         self.last_timings = {"prep_ms": (self._sync() - t0) * 1e3, "step_ms": []}
         self.last_dispatch = {"dispatch": dispatch}
-        n_cfg = cfg_steps(cfg_cutoff, len(ts))
         if dispatch == "scan":
-            latents = self._denoise_scan(parts, consts, latents, encoder_cache, n_cfg, gen)
+            latents = self._denoise_scan(parts, consts, latents, encoder_cache, n_cfg, gen, keep=key)
+            self._trim_graphs(beside_decode)
+            cache = self._graph_cache()
+            self.last_dispatch["graph_cache"].update(
+                kept=key in cache, entries=len(cache), pool_bytes=sum(entry.pool_bytes for entry in cache.values()))
         else:
             latents = self._denoise(parts, consts, latents, encoder_cache, n_cfg, gen, callback, callback_steps)
         t1 = self._sync()

@@ -183,10 +183,13 @@ def serve(
                 result = {"ok": False, "error": f"{type(e).__name__}: {e}",
                           "latency_s": round(time.time() - t0, 3)}
                 logger.warning("request %s failed: %s", rid, result["error"], exc_info=True)
-            if not result["ok"] and torch.cuda.is_initialized():
+            if not result["ok"]:
                 # the failed request's tensors are freed with its traceback;
-                # return their cached blocks so the next request can use them
-                torch.cuda.empty_cache()
+                # drop the kept step graphs and return the cached blocks, so
+                # the next request has the whole card
+                pipe.release_graphs()
+                if torch.cuda.is_initialized():
+                    torch.cuda.empty_cache()
             with open(out_prefix + ".result.json", "w") as f:
                 json.dump(result, f, indent=1)
             os.rename(working, working[: -len(".working")] + (".done" if result["ok"] else ".failed"))

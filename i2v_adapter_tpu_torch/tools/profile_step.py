@@ -14,9 +14,9 @@ of one training step.
 on, the serving default: the UNet's and the VAE decoder's convs in int8
 (the int8 3x3 conv kernel, K7 for the stride-2 downsamplers); without it
 the convs are exact.  ``--dispatch scan`` profiles a denoise step replayed
-from the CUDA graph the scan dispatch captures (``StepGraphs``: the first
-step of the kind eager, the second captured and replayed, the third, a
-replay, profiled); the default profiles the stepwise loop's eager step.
+from the step graphs the warm-up request (``'auto'`` -> ``'scan'``) left
+in the pipeline's graph cache, as a repeated request replays them; the
+default profiles the stepwise loop's eager step.
 
 Serving builds the full-width (SD1.5) pipeline with seeded random weights
 on the GPU, serves one warm-up request, then profiles the three parts of a
@@ -25,10 +25,12 @@ the reference training workload (``config.reference_train_config``: 2
 clips x 16 frames at 256 px, bf16, activation checkpointing) with seeded random
 weights and a synthetic batch, takes one warm-up step and profiles the
 next.  ``--latent`` profiles the latent zoo at ``chip_smoke.py``'s latent
-shapes (defaults, fp32, a 768-wide context): 10 steps of each sampler
-with CFG (SimpleUNet on (1, 32, 32, 4), SimpleUNet3D on (1, 16, 32, 32,
-4)) and one train step of each (8 x 64x64 latents; 2 clips x 16 frames of
-32x32), after a warm-up run of each.  Prints one JSON line per part: wall ms (synchronised), summed kernel
+shapes (defaults, fp32, a 768-wide context): each sampler with CFG over a
+50-timestep schedule (SimpleUNet on (1, 32, 32, 4), SimpleUNet3D on (1,
+16, 32, 32, 4); the first step eager, the second captured, every step a
+replay of its CUDA graph, as over the 1000 train timesteps), reported per
+step, and one train step of each (8 x 64x64 latents; 2 clips x 16 frames
+of 32x32), after a warm-up run of each.  Prints one JSON line per part: wall ms (synchronised), summed kernel
 ms, the device's idle share (1 - kernel / wall), kernel time by category
 and the top kernels; then the nvidia-smi name and power limit.  Needs one
 CUDA card.
@@ -38,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -46,12 +47,15 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from i2v_adapter_tpu_torch.ops.profiling import card_line
+
 # the serving path's shape: 512px, 16 frames, CFG 7.5; 5 steps keep the
 # warm-up request short (the profiled step does not depend on the count)
 SIZE, FRAMES, STEPS = 512, 16, 5
 
 
-def _category(name: str) -> str:
+def category(name: str) -> str:
+    """A device kernel's category, from its name."""
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention (K1)"
@@ -78,16 +82,10 @@ def _category(name: str) -> str:
     return "elementwise / other"
 
 
-def profile(fn, label: str, top: int = 12) -> dict:
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
-
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+def device_kernels(prof):
+    """``(device ms by kernel name, kernel count, host self ms by operator)``
+    of a finished ``torch.profiler`` run; range annotations (user
+    ``record_function`` ranges, on either timeline) are left out."""
     kernels, launches, host = {}, 0, {}
     for evt in prof.key_averages():
         if getattr(evt, "is_user_annotation", False):
@@ -100,10 +98,24 @@ def profile(fn, label: str, top: int = 12) -> dict:
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
             launches += evt.count
+    return kernels, launches, host
+
+
+def profile(fn, label: str, top: int = 12) -> dict:
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launches, host = device_kernels(prof)
     busy = sum(kernels.values())
     cats = {}
     for name, ms in kernels.items():
-        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+        cats[category(name)] = cats.get(category(name), 0.0) + ms
     return {
         "part": label,
         "wall_ms": wall_ms,
@@ -152,7 +164,8 @@ def profile_latent(dev) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    schedule = LATENT_SCHEDULE.replace(num_train_timesteps=10)
+    steps = 50
+    schedule = LATENT_SCHEDULE.replace(num_train_timesteps=steps)
     ctx = torch.randn(2, 77, 768, generator=gen, device=dev)
     for name, model, make, sample_shape, batch_shape in (
             ("image", SimpleUNet(context_dim=768, device=dev), make_latent_train_step, (1, 32, 32, 4),
@@ -166,10 +179,14 @@ def profile_latent(dev) -> None:
                  "text_embeds": ctx.repeat(batch_shape[0] // 2, 1, 1)}
         init_fn, step_fn = make(model)
         opt = init_fn()
-        for label, fn in ((f"{name}_sampler_10_steps", sample), (f"{name}_train_step",
-                                                                 lambda: step_fn(opt, batch, gen))):
+        for label, fn, per in ((f"{name}_sampler_step", sample, steps),
+                               (f"{name}_train_step", lambda: step_fn(opt, batch, gen), 1)):
             fn()  # warm-up: cuDNN plans, kernel builds
             line = profile(fn, label)
+            if per > 1:  # the sampler: per step of the run
+                line.update(steps=per, wall_ms=line["wall_ms"] / per, kernel_ms=line["kernel_ms"] / per,
+                            device_kernels=line["device_kernels"] / per,
+                            by_category_ms={k: v / per for k, v in line["by_category_ms"].items()})
             line.update(zoo=name, dtype="float32")
             print(json.dumps(line), flush=True)
 
@@ -196,15 +213,13 @@ def main(argv=None) -> int:
         profile_train(dev, args.conv_impl)
     else:
         profile_serving(dev, args.conv_impl, args.int8, args.dispatch)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
+    print(card_line(dev))
     return 0
 
 
 def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "stepwise") -> None:
     from i2v_adapter_tpu_torch.config import PipelineConfig
-    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import StepGraphs
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import _scan_stream
     from i2v_adapter_tpu_torch.utils import image as image_utils
     from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
 
@@ -214,7 +229,11 @@ def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "st
     model_cfg = _model_config(conv_impl)
     pipe = random_pipeline(model_cfg, pcfg, dev)
     image = np.random.default_rng(6).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
-    pipe("a cat", condition_image=image, seed=0)  # warm-up: cuDNN plans, kernel builds
+    # warm-up: cuDNN plans, kernel builds; 'auto' takes 'scan' and keeps its
+    # step graphs in the pipeline's cache
+    pipe("a cat", condition_image=image, seed=0)
+    if dispatch == "scan" and not pipe.last_dispatch.get("graph_cache", {}).get("kept"):
+        raise RuntimeError(f"the warm-up request kept no step graphs: {pipe.last_dispatch}")
 
     parts = pipe._build_parts(1, FRAMES, SIZE, SIZE, STEPS, pcfg.frame_similarity_sample_ratio, 7.5, True, True)
     prep, step, decode, ts, prev, _ = parts
@@ -228,15 +247,13 @@ def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "st
             state["latents"], state["consts"] = prep(text_ids, cond, clip, gen)
 
         loop = side = None
-        if dispatch == "scan":  # the kind's eager step, its capture and first replay; then replays
+        if dispatch == "scan":  # the kept entry, every kind captured: a step is a replay
             run_prep()
-            side = torch.cuda.Stream(dev)
+            side = _scan_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            loop = StepGraphs(parts, state["consts"], state["latents"], gen)
-            with torch.cuda.stream(side):
-                loop.step("cfg", ts[0], prev[0])
-                loop.step("cfg", ts[1], prev[1])
-            torch.cuda.current_stream(dev).wait_stream(side)
+            loop = next(iter(pipe._graph_cache().values()))
+            if "cfg" not in loop.graphs:
+                raise RuntimeError(f"the kept entry has no captured 'cfg' step: {sorted(loop.graphs)}")
 
         def run_step():
             if loop is None:

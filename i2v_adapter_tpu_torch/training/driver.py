@@ -434,7 +434,8 @@ def _run_validation(args, pipe, state, model_config, task_dir, epoch) -> list:
     ``samples_epoch_<n>/``; returns the uint8 clips.  The trainables are
     swapped in at the pipeline's dtype, as a pipeline built from the
     exported weights holds them, so the int8 sites quantise the trained
-    weights, and swapped back after."""
+    weights, and swapped back after.  The pipeline's kept step graphs read
+    the weights by address, so they are dropped at both swaps."""
     import csv as csv_mod
 
     from PIL import Image
@@ -450,6 +451,7 @@ def _run_validation(args, pipe, state, model_config, task_dir, epoch) -> list:
     try:
         for n in state.trainable:
             named[n].data = src[n].detach().to(pipe.dtype, copy=True)
+        pipe.release_graphs()
         pipe.enable_int8_conv(True)
         for i, row in enumerate(rows):
             video = pipe(row["prompt"], condition_image=Image.open(row["image_path"]),
@@ -461,6 +463,7 @@ def _run_validation(args, pipe, state, model_config, task_dir, epoch) -> list:
         pipe.enable_int8_conv(False)
         for n in state.trainable:
             named[n].data = masters[n]
+        pipe.release_graphs()
     logger.info("validation GIFs -> %s", out_dir)
     return videos
 

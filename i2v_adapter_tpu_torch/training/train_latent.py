@@ -5,7 +5,8 @@ A linear-beta DDPM schedule, closed-form q-sample, CFG text dropout, epsilon
 MSE, and ``optax.adamw(lr)`` alone (b1 0.9, b2 0.999, eps 1e-8, weight
 decay 1e-4 on every parameter, no clipping, no schedule) through the
 port's AdamW math (``training.state.adamw_updates``); the full ancestral
-sampling loop with CFG; checkpoints of Flax-named tensors that both
+sampling loop with CFG, one step replayed from a CUDA graph on the card;
+checkpoints of Flax-named tensors that both
 packages read.
 
 Randomness is explicit.  A step's timesteps, noise and CFG drop draws come
@@ -17,6 +18,7 @@ The parameters are the model's own and are updated in place.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional
 
@@ -26,6 +28,7 @@ import torch.nn as nn
 
 from i2v_adapter_tpu_torch.config import SchedulerConfig
 from i2v_adapter_tpu_torch.models.simple import SimpleUNet, SimpleUNet3D
+from i2v_adapter_tpu_torch.ops import launches
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddpm_step, make_schedule
 from i2v_adapter_tpu_torch.training.state import OptState, adamw_updates
 from i2v_adapter_tpu_torch.utils import convert
@@ -136,6 +139,37 @@ def make_video_latent_train_step(model: nn.Module, image_only: bool = False, **k
     return make_latent_train_step(model, is_video=True, image_only=image_only, **kwargs)
 
 
+def _sampler_setup(model, shape, generator, context, guidance_scale, schedule_config, x0, noises):
+    """What both samplers share: the schedule on the model's device, the
+    starting noise, the CFG context concatenated once, one step's function
+    ``step(x, t, noise)`` (``t`` a 0-d device timestep) and step ``i``'s
+    noise, drawn from ``generator`` or taken from ``noises``."""
+    dev = _device_of(model)
+    schedule = make_schedule(schedule_config, device=dev)
+    use_cfg = context is not None and guidance_scale > 1.0
+    x = (torch.randn(tuple(shape), generator=generator, device=dev) if x0 is None
+         else torch.as_tensor(x0, device=dev, dtype=torch.float32))
+    ctx = None
+    if context is not None:
+        context = torch.as_tensor(context, device=dev, dtype=torch.float32)
+        ctx = torch.cat([torch.zeros_like(context), context]) if use_cfg else context
+
+    def step(x, t, noise):
+        t = t.expand(x.shape[0])
+        if use_cfg:
+            eps_u, eps_c = model(torch.cat([x, x]), t.repeat(2), ctx).chunk(2)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+        else:
+            eps = model(x, t, ctx)
+        return ddpm_step(schedule, eps, t, x, noise)
+
+    def noise_of(i):
+        return (torch.randn(x.shape, generator=generator, device=dev) if noises is None
+                else torch.as_tensor(noises[i], device=dev, dtype=torch.float32))
+
+    return schedule.num_train_timesteps, x, step, noise_of
+
+
 @torch.no_grad()
 def sample_latents(
     model: nn.Module,
@@ -152,32 +186,67 @@ def sample_latents(
     ``guidance_scale`` > 1 each step evaluates the zeros-context half and
     the context half in one batch, ``eps_u + g (eps_c - eps_u)``.  The
     starting noise is ``x0`` or drawn from ``generator``; step i's noise is
-    ``noises[i]`` or drawn after the previous step's.  The timesteps and
-    the schedule live on the model's device, so no step reads a value back
-    to the host."""
-    dev = _device_of(model)
-    schedule = make_schedule(schedule_config, device=dev)
-    n = schedule.num_train_timesteps
-    use_cfg = context is not None and guidance_scale > 1.0
-    x = (torch.randn(tuple(shape), generator=generator, device=dev) if x0 is None
-         else torch.as_tensor(x0, device=dev, dtype=torch.float32))
-    if context is not None:
-        context = torch.as_tensor(context, device=dev, dtype=torch.float32)
-        ctx = torch.cat([torch.zeros_like(context), context]) if use_cfg else context
-    else:
-        ctx = None
-    timesteps = torch.arange(n - 1, -1, -1, device=dev)
-    b = x.shape[0]
+    ``noises[i]`` or drawn after the previous step's.
+
+    The counterpart of the JAX package's one ``lax.scan``: every step reads
+    static buffers (``x``, the timestep as a 0-d device tensor the host
+    fills, the step's noise, drawn outside the step in the eager loop's
+    order), so on the card the first step runs eagerly (the warm-up capture
+    needs), the second is captured into a CUDA graph and every step is a
+    replay of it, with its launches counted (``ops.launches``).  The
+    schedule's tables live on the card and nothing is read back to the
+    host.  On the CPU the same static-buffer step runs eagerly.  A failed
+    capture or replay raises."""
+    n, x0, step, noise_of = _sampler_setup(model, shape, generator, context, guidance_scale, schedule_config,
+                                           x0, noises)
+    dev = x0.device
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+    if cuda:
+        side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+        x = x0.clone()
+        t = torch.zeros((), dtype=torch.long, device=dev)
+        noise = torch.empty_like(x)
+        graph = counts = None
+
+        def body():
+            x.copy_(step(x, t, noise))
+
+        for i in range(n):
+            t.fill_(n - 1 - i)
+            noise.copy_(noise_of(i))
+            if graph is None and cuda and i > 0:
+                graph, counts = launches.capture(body)
+            if graph is not None:
+                launches.replay(graph, counts)
+            else:
+                body()
+    if cuda:  # the graph and its pool go with this frame: let its replays finish first
+        torch.cuda.current_stream(dev).wait_stream(side)
+        side.synchronize()
+    return x
+
+
+@torch.no_grad()
+def _sample_latents_eager(
+    model: nn.Module,
+    shape,
+    generator: Optional[torch.Generator] = None,
+    context: Optional[torch.Tensor] = None,
+    guidance_scale: float = 7.5,
+    schedule_config: SchedulerConfig = LATENT_SCHEDULE,
+    x0: Optional[torch.Tensor] = None,
+    noises=None,
+) -> torch.Tensor:
+    """``sample_latents``' plain version: the eager loop, one step at a
+    time, each timestep a view of a device table; the replayed sampler is
+    held against it, bit for bit."""
+    n, x, step, noise_of = _sampler_setup(model, shape, generator, context, guidance_scale, schedule_config,
+                                          x0, noises)
+    timesteps = torch.arange(n - 1, -1, -1, device=x.device)
     for i in range(n):
-        t = timesteps[i].expand(b)
-        if use_cfg:
-            eps_u, eps_c = model(torch.cat([x, x]), t.repeat(2), ctx).chunk(2)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-        else:
-            eps = model(x, t, ctx)
-        noise = (torch.randn(x.shape, generator=generator, device=dev) if noises is None
-                 else torch.as_tensor(noises[i], device=dev, dtype=torch.float32))
-        x = ddpm_step(schedule, eps, t, x, noise)
+        x = step(x, timesteps[i], noise_of(i))
     return x
 
 

@@ -112,7 +112,8 @@ def test_webvid_items_match_jax(video_dir, preprocessing, mode):
     assert -1.0 <= item["pixel_values"].min() and item["pixel_values"].max() <= 1.0
 
 
-def test_webvid_sharding_and_clamp_match_jax(video_dir):
+@pytest.mark.parametrize("preprocessing", ["native", "numpy"], indirect=True)
+def test_webvid_sharding_and_clamp_match_jax(video_dir, preprocessing):
     """Per-process stripes of the rows, and a clip longer than a video
     clamped to the video's length (12 frames at stride 8)."""
     for shard in range(2):
@@ -224,7 +225,8 @@ def test_data_loader_reads_ahead_boundedly():
     assert len(list(batches)) == 99 and ds.calls == 200
 
 
-def test_data_loader_over_webvid_matches_jax(video_dir):
+@pytest.mark.parametrize("preprocessing", ["native", "numpy"], indirect=True)
+def test_data_loader_over_webvid_matches_jax(video_dir, preprocessing):
     """The loader over the WebVid dataset with one thread, two epochs."""
     jds, pds = _datasets(video_dir)
     jl, pl = jloader.DataLoader(jds, 2, num_workers=1, seed=1), ploader.DataLoader(pds, 2, num_workers=1, seed=1)

@@ -593,7 +593,8 @@ def test_scan_dispatch_equals_stepwise_on_card(cuda_device, encoder_cache):
     """A tiny fp32 pipeline at the serving default (K1, K2, the int8 conv
     kernel and K7 inside the graphs): 'scan' captures each step kind used
     twice or more once and replays it, equal bit for bit to 'stepwise', the
-    launch counts equal."""
+    launch counts equal; a repeated call replays the kept graphs with no
+    capture."""
     import numpy as np
 
     from i2v_adapter_tpu_torch.config import PipelineConfig, tiny_test_config
@@ -614,6 +615,13 @@ def test_scan_dispatch_equals_stepwise_on_card(cuda_device, encoder_cache):
     assert len(pipe.last_dispatch["capture_ms"]) == encoder_cache  # one graph per kind used twice or more
     assert counts["scan"] == counts["stepwise"] and counts["scan"]["int8_conv3x3_kernel"] > 0
     np.testing.assert_array_equal(outs["scan"], outs["stepwise"])
+    # again: the kept graphs replay with no capture, the same clip and launches
+    before = launches.snapshot()
+    again = pipe("a cat", condition_image=image, seed=1, output_type="latent", dispatch="scan",
+                 encoder_cache=encoder_cache)
+    assert pipe.last_dispatch["graph_cache"]["hit"] and pipe.last_dispatch["capture_ms"] == []
+    assert launches.since(before) == counts["scan"]
+    np.testing.assert_array_equal(again, outs["stepwise"])
 
 
 @pytest.mark.gpu

@@ -13,7 +13,10 @@
   losses 1e-5, parameters 1e-4 after each step, AdamW's first moments to
   1e-3 of each leaf's max, and each leaf's update to 1e-2 of its largest;
 * ``sample_latents`` on a 10-timestep schedule fed JAX's starting noise and
-  per-step noise, 1e-4;
+  per-step noise, 1e-4, and equal bit for bit to its eager loop
+  (``_sample_latents_eager``) on the same draws; on 24 timesteps with a
+  generator, the static-buffer program (replayed from a CUDA graph on the
+  card) equal bit for bit to the eager loop, for both UNets;
 * simple checkpoints written by each package and read by the other, bit
   for bit; the three latent datasets against the JAX ones, item for item;
 * the training driver's async full-state save when the run raises after
@@ -461,10 +464,31 @@ def test_sample_latents_matches_jax(rng):
     for _ in range(10):
         chain, nkey = jax.random.split(chain)
         noises.append(np.asarray(jax.random.normal(nkey, shape)))
-    got = ptrain.sample_latents(_port(pm, params), shape, context=_t(ctx), guidance_scale=7.5,
-                                schedule_config=ptrain.LATENT_SCHEDULE.replace(num_train_timesteps=10),
-                                x0=_t(x0), noises=np.stack(noises))
+    fed = dict(context=_t(ctx), guidance_scale=7.5,
+               schedule_config=ptrain.LATENT_SCHEDULE.replace(num_train_timesteps=10), x0=_t(x0),
+               noises=np.stack(noises))
+    model = _port(pm, params)
+    got = ptrain.sample_latents(model, shape, **fed)
     assert np.isfinite(got.numpy()).all() and maxerr(got.numpy(), want) <= TOL
+    assert torch.equal(got, ptrain._sample_latents_eager(model, shape, **fed))
+
+
+@pytest.mark.parametrize("video", [False, True], ids=["SimpleUNet", "SimpleUNet3D"])
+def test_sample_latents_static_program_equals_eager(video):
+    """The sampler's static-buffer program (the step the card captures and
+    replays) against the eager loop over 24 timesteps, both drawing their
+    starting and per-step noise from a generator of one seed: equal bit for
+    bit, and the generator left in the same state."""
+    _, pm = _unet3d() if video else _unet2d()
+    shape = (1, 3, 16, 16, 4) if video else (1, 16, 16, 4)
+    kw = dict(context=torch.randn(1, 3, CTX, generator=torch.Generator().manual_seed(2)), guidance_scale=7.5,
+              schedule_config=ptrain.LATENT_SCHEDULE.replace(num_train_timesteps=24))
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    got = ptrain.sample_latents(pm, shape, gens[0], **kw)
+    want = ptrain._sample_latents_eager(pm, shape, gens[1], **kw)
+    assert got.shape == shape and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
 
 
 def test_sample_latents_draws_from_its_generator():

@@ -83,11 +83,32 @@ def test_port_imports_no_jax(path):
         assert top not in ("jax", "jaxlib", "flax", "i2v_adapter_tpu"), f"{path.name} imports {mod}"
 
 
+# the profilers that time PyTorch's attention beside K1 / K2 as a yardstick
+# (``ops/profile_unet.py``'s ``attention_sdpa`` variant, ``ops/tune.py``'s
+# SDPA columns), as chip_smoke.py times a library call beside each kernel
+YARDSTICK_TOOLS = ("ops/profile_unet.py", "ops/tune.py")
+
+
 def test_port_uses_no_library_attention_or_compile():
+    """No module of the port calls SDPA or ``torch.compile``, but the two
+    yardstick tools, which no module of the port imports."""
+    tools = {PKG / t for t in YARDSTICK_TOOLS}
+    names = {f"i2v_adapter_tpu_torch.{t[:-3].replace('/', '.')}" for t in YARDSTICK_TOOLS}
     for path in _package_sources():
         text = path.read_text()
-        assert "scaled_dot_product_attention" not in text, path
         assert "torch.compile" not in text, path
+        if path in tools:
+            continue
+        assert "scaled_dot_product_attention" not in text, path
+        tree = ast.parse(text, filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                imported = {node.module} | {f"{node.module}.{a.name}" for a in node.names}
+            elif isinstance(node, ast.Import):
+                imported = {a.name for a in node.names}
+            else:
+                continue
+            assert not imported & names, f"{path} imports a yardstick tool"
 
 
 def test_kernel_sources_present():

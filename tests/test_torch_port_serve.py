@@ -127,10 +127,14 @@ def test_serve_refuses_over_envelope_and_serves_on(setup, tmp_path):
 
 class _OutOfMemoryOnce:
     """The real pipeline, whose first call fails as a card out of memory
-    fails."""
+    fails; counts the daemon's drops of its kept step graphs."""
 
     def __init__(self, pipe):
-        self.pipe, self.failed = pipe, False
+        self.pipe, self.failed, self.released = pipe, False, 0
+
+    def release_graphs(self):
+        self.released += 1
+        self.pipe.release_graphs()
 
     def __call__(self, *a, **k):
         if not self.failed:
@@ -146,7 +150,9 @@ def test_serve_survives_out_of_memory(setup, tmp_path):
     req_dir, out_dir = str(tmp_path / "requests"), str(tmp_path / "output")
     queue(req_dir, {rid: {"prompt": "a cat", "image": setup["image"], "format": "npy"}
                     for rid in ("a_oom", "b_next")})
-    assert serve.serve(_OutOfMemoryOnce(setup["pipe"]), req_dir, out_dir, max_requests=5) == 2
+    oom = _OutOfMemoryOnce(setup["pipe"])
+    assert serve.serve(oom, req_dir, out_dir, max_requests=5) == 2
+    assert oom.released == 1  # after the failed request only
     r = result(out_dir, "a_oom")
     assert not r["ok"] and r["error"].startswith("OutOfMemoryError: CUDA out of memory")
     assert result(out_dir, "b_next")["ok"]
@@ -163,6 +169,9 @@ class _HangingPipe:
 
     def __call__(self, *a, **k):
         self.release.wait(60)
+
+    def release_graphs(self):
+        pass
 
     def export_gifs(self, *a, **k):  # pragma: no cover - never reached
         raise AssertionError("hanging pipe should never produce output")
