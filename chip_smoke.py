@@ -87,6 +87,22 @@ Phases, one JSON line each, in order:
                    request each, through the daemon's loop (``serve.serve``)
 9. ``cli``      -- ``pipelines.cli.main`` on a one-row CSV with the same task,
                    ``--no-int8_conv``, 5 steps: one GIF
+9a. ``mesh``    -- one clip over several cards: one rank per visible card,
+                   spawned as ``--mesh`` spawns them, at full width, 512 px,
+                   16 frames, the serving default, 5 steps; on 1 card the
+                   (1,1,1) mesh, equal bit for bit to the unmeshed clip
+                   (``"ranks": 1``); on 4 cards (2,1,2), (1,1,4) and (2,2,1),
+                   each UNet evaluation over 40 dB PSNR against one card
+                   (int8 and exact convs), each exact-conv clip over 35 dB,
+                   each int8 clip within 1 dB of the card's own rounding
+                   perturbation of it (attention through the plain
+                   version), and the daemon's request (a) at (2,1,2)
+                   through ``serve.main --mesh``, twice; per mesh the
+                   latency, step and decode ms, each rank's peak memory and
+                   launches (held to the config's local counts) and one
+                   step's collectives (count, bytes, ms; held to
+                   ``parallel.audit``'s formula).  ``--only mesh`` runs the
+                   device, build and mesh phases alone
 9b. ``driver``  -- ``training/driver.py``'s ``main`` on that directory at the
                    reference training workload (config 4, EMA) over 12
                    WebVid-layout clips (64 frames at 336 x 256, OpenCV's
@@ -165,6 +181,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# NVLink 4 between two H100 SXM cards of one host: 900 GB/s both ways
+# together, 450 GB/s each way
+PEAK_NVLINK_BYTES = 450e9
 
 # errors are max |kernel - plain| over max |plain| (no floor: attention
 # outputs are well under 1, so a floor would turn these into loose absolutes)
@@ -612,7 +631,7 @@ def phase_build(rehearse: bool) -> None:
 
 
 def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=False, nk=None,
-                other_weights=None):
+                other_weights=None, heads=8):
     """One K1 shape: kernel vs plain in fp32 and bf16, then bf16 timings.
     ``n`` queries and ``nk`` keys (default ``n``).  ``row_major`` stores q,
     k, v as (B, H, N, D) and calls the ``transposed_io=False`` entry (the
@@ -622,7 +641,7 @@ def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=F
 
     from i2v_adapter_tpu_torch.ops.attention import _plain_attention, flash_attention
 
-    h = 8
+    h = heads
     nk = n if nk is None else nk
     g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d + (nk - n) * 7)
     rep = bq // bkv
@@ -794,7 +813,7 @@ def _zoo_flash_bwd_case(name, bq, n, d, dev, iters, latent_weight):
 
 
 def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_weight=0,
-                   other_weights=None):
+                   other_weights=None, heads=8):
     """One K2 shape.  ``forced`` goes through ``temporal_attention(impl=
     "kernel")``, the dispatcher with the kernel forced (the reference's
     all-of-C kernel K6, which its forced impl also runs below 128 tokens)."""
@@ -810,7 +829,6 @@ def _temporal_case(name, b, fq, f, s, c, dev, iters, weight, forced=False, step_
         temporal_attention_cs = lambda q, k, v, heads: temporal_attention(  # noqa: E731
             q, k, v, heads=heads, impl="kernel")
 
-    heads = 8
     d = c // heads
     g = torch.Generator(device=dev).manual_seed(b * 104729 + s * 13 + c + f)
     q32 = torch.randn(b, fq, s, c, generator=g, device=dev)
@@ -1041,6 +1059,32 @@ def int8_site_shapes(model_cfg) -> list:
 INT8_TOOL_SHAPES = (0, 6, 12)
 
 
+# (name, bq, bkv, n, d, heads, launches per meshed evaluation)
+MESH_FLASH_CASES = (
+    ("mesh (2,1,2) adapter N4096 D40 rep8", 8, 1, 4096, 40, 8, 5),
+    ("mesh (2,1,2) adapter N1024 D80 rep8", 8, 1, 1024, 80, 8, 5),
+    ("mesh (2,1,2) adapter N256 D160 rep8", 8, 1, 256, 160, 8, 5),
+    ("mesh (1,1,4) adapter N4096 D40 rep4", 8, 2, 4096, 40, 8, 5),
+    ("mesh (1,1,4) adapter N1024 D80 rep4", 8, 2, 1024, 80, 8, 5),
+    ("mesh (1,1,4) adapter N256 D160 rep4", 8, 2, 256, 160, 8, 5),
+    ("mesh (2,2,1) attn1 N4096 D40 H4", 16, 16, 4096, 40, 4, 5),
+    ("mesh (2,2,1) adapter N4096 D40 H4 rep16", 16, 1, 4096, 40, 4, 5),
+    ("mesh (2,2,1) attn1 N1024 D80 H4", 16, 16, 1024, 80, 4, 5),
+    ("mesh (2,2,1) attn1 N256 D160 H4", 16, 16, 256, 160, 4, 5),
+)
+# (name, b, frames, local S, C, heads, launches per meshed evaluation)
+MESH_TEMPORAL_CASES = (
+    ("mesh (2,1,2) motion S2048 C320", 1, 16, 2048, 320, 8, 10),
+    ("mesh (2,1,2) motion S512 C640", 1, 16, 512, 640, 8, 10),
+    ("mesh (2,1,2) motion S128 C1280", 1, 16, 128, 1280, 8, 10),
+    ("mesh (1,1,4) motion S1024 C320", 2, 16, 1024, 320, 8, 10),
+    ("mesh (1,1,4) motion S256 C640", 2, 16, 256, 640, 8, 10),
+    ("mesh (2,2,1) motion S4096 C160 H4", 1, 16, 4096, 160, 4, 10),
+    ("mesh (2,2,1) motion S1024 C320 H4", 1, 16, 1024, 320, 4, 10),
+    ("mesh (2,2,1) motion S256 C640 H4", 1, 16, 256, 640, 4, 10),
+)
+
+
 def phase_kernels(dev, rehearse: bool):
     """Every serving shape at 512px / 16 frames / CFG (Bq = 32 frame-evals,
     8 heads), plus the edges the path could meet; every shape the 256 px
@@ -1247,6 +1291,22 @@ def phase_kernels(dev, rehearse: bool):
     for case in window_temporal_cases:
         row, ok = _temporal_case(*case[:-1], dev=dev, iters=20, weight=0,
                                  other_weights={"launches_per_window_eval": case[-1]})
+        rows["temporal_attention_cs"].append(row)
+        failed += [] if ok else [row["name"]]
+    # the shapes each rank gives K1 and K2 over the 4-card meshes of the
+    # mesh phase (512 px, 16 frames, CFG), weighted by launches per meshed
+    # evaluation: the cross-frame adapter with the local kv_repeat (8 at
+    # (2,1,2): one CFG half x 8 frames; 4 at (1,1,4): 2 halves x 4 frames),
+    # 4 heads at tensor 2 ((2,2,1): one half x 16 frames), and K2
+    # token-sharded (S / seq; a local S under 128 takes the plain path)
+    for name, bq, bkv, n, d, heads, w in MESH_FLASH_CASES:
+        row, ok = _flash_case(name, bq, bkv, n, d, 64.0, dev, 5, 0, heads=heads,
+                              other_weights={"launches_per_mesh_eval": w})
+        rows["flash_attention"].append(row)
+        failed += [] if ok else [row["name"]]
+    for name, b, f, seq_s, c, heads, w in MESH_TEMPORAL_CASES:
+        row, ok = _temporal_case(name, b, f, f, seq_s, c, dev, 10, 0, heads=heads,
+                                 other_weights={"launches_per_mesh_eval": w})
         rows["temporal_attention_cs"].append(row)
         failed += [] if ok else [row["name"]]
     emit({"phase": "kernels", "tol_fp32": TOL_FP32, "tol_bf16": TOL_BF16,
@@ -2473,6 +2533,281 @@ def phase_cli(model_cfg, dev, rehearse: bool, ckpt: dict):
     return counts
 
 
+# the mesh phase: one rank per visible card, spawned as --mesh spawns them
+MESH_STEPS = 5
+MESH_EVAL_PSNR_MIN = 40.0
+MESH_CLIP_PSNR_MIN = 35.0
+# the int8 clip's distance from one card is held to the card's own: the same
+# card's int8 clip with attention through the plain version (fp32 softmax)
+# in place of the kernels, less this margin.  An int8 activation that lands
+# on another rounding bucket moves a conv output by a 127th of its range,
+# so any perturbation of the int8 clip (the mesh's or the card's own)
+# reads about 33 dB at 5 steps, while the exact-conv clips stay over 40 dB
+MESH_INT8_CLIP_MARGIN_DB = 1.0
+MESH_TIMEOUT_S = 600
+
+
+def mesh_shapes(cards: int, rehearse: bool) -> list:
+    """The (data, tensor, seq) meshes of the mesh phase on ``cards`` cards
+    (two gloo ranks in the rehearsal)."""
+    if rehearse:
+        return [(2, 1, 1), (1, 1, 2)]
+    if cards >= 4:
+        return [(2, 1, 2), (1, 1, 4), (2, 2, 1)]
+    return [(1, 1, 1)]
+
+
+def mesh_launches_per_eval(model_cfg, latent: int, mesh: tuple, frames: int) -> dict:
+    """One rank's kernel launches for one meshed UNet evaluation (CFG, one
+    clip): K1 as on one card (each site runs once on the rank's slab), K2 at
+    the motion modules whose local token count (S / seq when the frames and
+    the tokens split, else S) reaches 128, the int8 sites as on one card."""
+    ucfg = model_cfg.unet
+    flash, _ = launches_per_unet_eval(ucfg, latent, True)
+    s = mesh[2]
+    split = s > 1 and frames % s == 0
+    n = ucfg.num_blocks
+    levels = [(latent >> i, ucfg.layers_per_block, ucfg.use_motion_modules) for i in range(n)]
+    levels.append((latent >> (n - 1), 1, ucfg.use_motion_modules and ucfg.use_motion_mid_block))
+    levels += [(latent >> (n - 1 - i), ucfg.layers_per_block + 1, ucfg.use_motion_modules) for i in range(n)]
+    temporal = 0
+    for h, layers, motion in levels:
+        tokens = h * h
+        local = tokens // s if split and tokens % s == 0 else tokens
+        temporal += 2 * layers if motion and local >= 128 else 0
+    int8 = int8_launches(model_cfg, latent)["per_eval"]
+    return expected_counts(flash_attention=flash, temporal_attention_cs=temporal,
+                           int8_conv3x3_kernel=int8["int8_conv3x3_kernel"], int8_matmul=int8["int8_matmul"])
+
+
+def _mesh_rank(meshes, model_cfg, size: int, frames: int, rehearse: bool) -> dict:
+    """One rank of the mesh phase: the serving default with seeded random
+    weights (the same on every rank); one UNet evaluation and a
+    ``MESH_STEPS``-step clip on this card alone, then per mesh the same
+    evaluation and clip (twice: the first captures the step graphs, the
+    second replays them) with this rank's launches, one step's collectives
+    (``tools.audit_multichip.audit_step``) and peak memory."""
+    from i2v_adapter_tpu_torch.config import MeshConfig, PipelineConfig
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.parallel import collectives
+    from i2v_adapter_tpu_torch.parallel.mesh import create_mesh
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import meshed_unet_eval
+    from i2v_adapter_tpu_torch.tools.audit_multichip import audit_step
+    from i2v_adapter_tpu_torch.utils.random_init import random_pipeline
+
+    dev = torch.device("cpu") if rehearse else torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
+    pc = PipelineConfig(num_frames=frames, height=size, width=size, num_inference_steps=MESH_STEPS,
+                        **({"dtype": "float32"} if rehearse else {}))
+    pipe = random_pipeline(model_cfg, pc, dev, seed=1)
+    image = np.random.default_rng(6).integers(0, 256, (size, size, 3), dtype=np.uint8)
+    parts = pipe._build_parts(1, frames, size, size, MESH_STEPS, 0.9, 7.5, True, True)
+    isz = model_cfg.image_encoder.image_size
+    cond = np.random.default_rng(7).uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    clip_img = np.random.default_rng(8).standard_normal((1, isz, isz, 3)).astype(np.float32)
+    with torch.inference_mode():
+        latents, consts = parts[0](pipe.tokenizer(["", "a cat"]), cond, clip_img,
+                                   torch.Generator(device=dev).manual_seed(0))
+    x = torch.cat([latents, latents])
+    t = torch.full((2,), float(parts[3][0]), device=dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def evaluation(mesh):
+        with torch.inference_mode():
+            eps = meshed_unet_eval(mesh, lambda xl, c, i: pipe.unet(
+                xl.to(pipe.dtype), t[: xl.shape[0]], c, i, enable_cross_frame_attn=True), x, consts[1], consts[2])
+            return eps.float().cpu().numpy()
+
+    def clip(output="float"):
+        t0 = time.perf_counter()
+        out = pipe("a cat", condition_image=image, seed=3, output_type=output, dispatch="scan")
+        return out, time.perf_counter() - t0
+
+    def exact(fn):  # fn() with exact convs (the same weights)
+        pipe.enable_int8_conv(False)
+        try:
+            return fn()
+        finally:
+            pipe.enable_int8_conv(True)
+
+    def timings():
+        steps = pipe.last_timings.get("step_ms", [])
+        return {"prep_ms": pipe.last_timings.get("prep_ms"), "step_ms_mean": float(np.mean(steps)),
+                "steps": len(steps), "decode_ms": pipe.last_timings.get("decode_ms")}
+
+    ref_eval = evaluation(None)
+    clip()
+    ref_clip, ref_s = clip()
+    rec = {"one_card": {"latency_s": ref_s, **timings()}, "meshes": []}
+    ref_latents = clip("latent")[0]
+    ref_exact_eval, ref_exact_clip = exact(lambda: (evaluation(None), clip()[0]))
+    if any(m[0] * m[1] * m[2] > 1 for m in meshes):
+        # what a perturbation of one card's own rounding does to the same
+        # int8 evaluation and clip: attention through the plain version
+        # (fp32 softmax) in place of the kernels
+        pipe.unet.set_attn_impl("plain")
+        rec["one_card"]["plain_attention_eval_psnr_db"] = psnr(evaluation(None), ref_eval)
+        rec["one_card"]["plain_attention_clip_psnr_db"] = psnr(clip()[0], ref_clip)
+        pipe.unet.set_attn_impl("auto")
+    for sizes in meshes:
+        mesh = create_mesh(MeshConfig(data=sizes[0], fsdp=1, tensor=sizes[1], seq=sizes[2]), device=dev)
+        pipe.enable_mesh(mesh)
+        launches.reset()
+        calls = collectives.calls
+        got_eval = evaluation(mesh)
+        sync()
+        eval_launches, eval_calls = launches.snapshot(), collectives.calls - calls
+        step_audit = audit_step(pipe, size, frames)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        launches.reset()
+        _, first_s = clip()
+        first_launches = launches.snapshot()
+        launches.reset()
+        got_clip, latency_s = clip()
+        clip_launches = launches.snapshot()
+        timing = timings()
+        got_latents = clip("latent")[0]
+        exact_eval, exact_clip = exact(lambda: (evaluation(mesh), clip()[0]))
+        rec["meshes"].append({
+            "mesh": ",".join(map(str, sizes)), "latency_s": latency_s, "first_latency_s": first_s, **timing,
+            "eval_psnr_db": psnr(got_eval, ref_eval), "clip_psnr_db": psnr(got_clip, ref_clip),
+            "latents_psnr_db": psnr(got_latents, ref_latents), "exact_eval_psnr_db": psnr(exact_eval, ref_exact_eval),
+            "exact_clip_psnr_db": psnr(exact_clip, ref_exact_clip),
+            "eval_equal": bool(np.array_equal(got_eval, ref_eval)), "clip_equal": bool(np.array_equal(got_clip, ref_clip)),
+            "finite": bool(np.isfinite(got_clip).all()),
+            "eval_launches": eval_launches, "eval_collectives": eval_calls,
+            "clip_launches_capture": first_launches, "clip_launches": clip_launches,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None,
+            "graph_cache": dict(pipe.last_dispatch.get("graph_cache", {})),
+            "collectives_per_step": {k: {"count": v["count"], "bytes": v["out_bytes"], "ms": v["ms"],
+                                         "wire_bytes_per_device": v["wire_bytes_per_device"],
+                                         "bound_ms": v["wire_bytes_per_device"] / PEAK_NVLINK_BYTES * 1e3}
+                                     for k, v in step_audit["summary"]["by_kind"].items()},
+            "collectives_ms_per_step": step_audit["summary"]["ms"],
+            "collectives_expected": step_audit["expected"],
+            "decode_collectives": {k: v["count"] for k, v in step_audit["decode"]["by_kind"].items()},
+            "decode_collectives_expected": step_audit["decode_expected"],
+        })
+        pipe.disable_mesh()
+    return rec
+
+
+def _mesh_daemon(ckpt: dict, model_cfg, mesh: str) -> dict:
+    """The daemon's request (a) (the CLI's defaults, 22 steps; ``npy``
+    output) through ``serve.main --mesh``, which spawns the ranks, then (a)
+    again with another seed (the kept step graphs replayed: the warm
+    latency)."""
+    from i2v_adapter_tpu_torch.pipelines import serve as serve_mod
+
+    req_dir, out_dir = os.path.join(WORK_DIR, "mesh", "requests"), os.path.join(WORK_DIR, "mesh", "output")
+    os.makedirs(req_dir)
+    image = _condition_image(512)
+    for i, rid in enumerate(("a_defaults", "a_repeat")):
+        path = os.path.join(req_dir, rid + ".json")
+        with open(path, "w") as f:
+            json.dump({"prompt": "a cat", "image": image, "seed": i, "format": "npy"}, f)
+        os.utime(path, (time.time() + i, time.time() + i))
+    t0 = time.perf_counter()
+    served = serve_mod.main(["--pretrained_model_path", ckpt["root"], "--task_name", TASK, "--checkpoint_dir",
+                             ckpt["checkpoint_dir"], "--max_requests", "2", "--mesh", mesh,
+                             "--requests_dir", req_dir, "--output_dir", out_dir], model_config=model_cfg)
+    results, shapes = {}, {}
+    for rid in ("a_defaults", "a_repeat"):
+        with open(os.path.join(out_dir, rid + ".result.json")) as f:
+            results[rid] = json.load(f)
+        video = np.load(os.path.join(out_dir, rid + ".npy")) if results[rid].get("ok") else None
+        shapes[rid] = None if video is None or not np.isfinite(video).all() else list(video.shape)
+    return {"mesh": mesh, "served": served, "seconds": time.perf_counter() - t0, "results": results,
+            "finite_shapes": shapes}
+
+
+def phase_mesh(model_cfg, dev, rehearse: bool, ckpt: dict):
+    """One clip over several cards: one rank per visible card, spawned by
+    ``parallel.launch.run_ranks`` (the ``--mesh`` entry's), at full width,
+    512 px, 16 frames, the serving default, ``MESH_STEPS`` steps: per mesh
+    (``mesh_shapes``) the UNet evaluation's and the clip's PSNR against the
+    same card alone (at (1,1,1) equal bit for bit), latency, step and decode
+    ms, each rank's peak memory and launches (against
+    ``mesh_launches_per_eval``), one step's collectives (count, bytes, ms;
+    against ``parallel.audit``'s formula); on 4 cards the daemon's request
+    (a) at (2,1,2).  Any rank failing or hanging fails the phase."""
+    from i2v_adapter_tpu_torch.parallel.launch import run_ranks
+
+    cards = 2 if rehearse else torch.cuda.device_count()
+    meshes = mesh_shapes(cards, rehearse)
+    ranks = max(m[0] * m[1] * m[2] for m in meshes)
+    size, frames, _ = serving_sizes(rehearse)
+    latent = size // model_cfg.vae.spatial_scale_factor
+    if not rehearse:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = run_ranks(_mesh_rank, ranks, (meshes, model_cfg, size, frames, rehearse),
+                     device="cpu" if rehearse else None, timeout=MESH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    steps = clip_denoise_steps(MESH_STEPS)
+    decode = expected_counts(**int8_launches(model_cfg, latent)["per_decode"])
+    failed, lines = [], []
+    for i, sizes in enumerate(meshes):
+        per = [r["meshes"][i] for r in recs]
+        m = dict(per[0])
+        per_eval = expected_counts() if rehearse else mesh_launches_per_eval(model_cfg, latent, sizes, frames)
+        want_clip = {k: steps * per_eval[k] + (0 if rehearse else decode[k]) for k in per_eval}
+        m.update(launches_per_rank=[r["clip_launches"] for r in per],
+                 eval_launches_per_rank=[r["eval_launches"] for r in per],
+                 peak_gb_per_rank=[r["peak_gb"] for r in per], expected_eval_launches=per_eval,
+                 expected_clip_launches=want_clip)
+        for key in ("clip_launches", "clip_launches_capture", "eval_launches", "peak_gb"):
+            m.pop(key, None)
+        name = m["mesh"]
+        if any(r["eval_launches"] != per_eval or r["clip_launches"] != want_clip
+               or r["clip_launches_capture"] != want_clip for r in per):
+            failed.append(f"{name}: launches per rank {[r['clip_launches'] for r in per]} != {want_clip}")
+        counts = {k: v["count"] for k, v in m["collectives_per_step"].items()}
+        if counts != m["collectives_expected"] or m["decode_collectives"] != m["decode_collectives_expected"]:
+            failed.append(f"{name}: collectives {counts} != {m['collectives_expected']}")
+        if not m["finite"] or m["steps"] != steps:
+            failed.append(f"{name}: finite {m['finite']}, steps {m['steps']}")
+        if sizes == (1, 1, 1):
+            if not (m["eval_equal"] and m["clip_equal"]) or m["exact_clip_psnr_db"] != math.inf:
+                failed.append(f"{name}: not equal bit for bit to the unmeshed clip")
+        elif not rehearse:
+            # the limits are set for full width (the tiny config's int8
+            # buckets flip more often), as the gradcheck's are
+            floor = recs[0]["one_card"]["plain_attention_clip_psnr_db"] - MESH_INT8_CLIP_MARGIN_DB
+            if min(m["eval_psnr_db"], m["exact_eval_psnr_db"]) < MESH_EVAL_PSNR_MIN \
+                    or m["exact_clip_psnr_db"] < MESH_CLIP_PSNR_MIN or m["clip_psnr_db"] < floor:
+                failed.append(f"{name}: PSNR eval {m['eval_psnr_db']:.1f} (exact {m['exact_eval_psnr_db']:.1f}), "
+                              f"clip {m['clip_psnr_db']:.1f} (one card's own {floor + MESH_INT8_CLIP_MARGIN_DB:.1f}), "
+                              f"exact clip {m['exact_clip_psnr_db']:.1f} dB")
+        lines.append(m)
+    daemon = None
+    if cards >= 4 and not rehearse:
+        daemon = _mesh_daemon(ckpt, model_cfg, "2,1,2")
+        if daemon["served"] != 2 or any(not r.get("ok") for r in daemon["results"].values()) \
+                or any(v != [1, frames, size, size, 3] for v in daemon["finite_shapes"].values()):
+            failed.append(f"daemon: {daemon}")
+    # the counts the formula gives at the JAX CPU-sim audit's mesh (data 2 x
+    # seq 4, MULTICHIP_AUDIT_CPUSIM_INFER.json), for the comparison
+    from i2v_adapter_tpu_torch.parallel.audit import collectives_per_unet_eval
+
+    at_jax_mesh = collectives_per_unet_eval(model_cfg.unet, {"data": 2, "fsdp": 1, "tensor": 1, "seq": 4}, 2,
+                                            frames, latent, True, True)
+    emit({"phase": "mesh", "ranks": ranks, "cards": cards, "size": size, "frames": frames, "steps": steps,
+          "seconds": seconds, "one_card": recs[0]["one_card"], "meshes": lines, "daemon": daemon,
+          "formula_at_data2_seq4": at_jax_mesh, "nvlink_bytes_per_s": PEAK_NVLINK_BYTES,
+          "limits": {"eval_psnr_db": MESH_EVAL_PSNR_MIN, "exact_clip_psnr_db": MESH_CLIP_PSNR_MIN,
+                     "int8_clip_margin_db": MESH_INT8_CLIP_MARGIN_DB}})
+    if failed:
+        raise AssertionError(f"mesh: {failed}")
+    # rank 0's launches over the meshes' clips
+    return {k: sum(m["clip_launches"][k] for m in recs[0]["meshes"]) for k in KERNELS}
+
+
 # the driver phase: clips written in the WebVid layout, trained on through
 # training/driver.py and served from what it wrote
 DRIVER_TASK = "driver_task"
@@ -3355,11 +3690,12 @@ SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
      ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "driver_t2i", "train",
-      "train_pallas", "latent"),
+      "train_pallas", "latent", "mesh"),
      "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
-     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "train", "train_pallas"),
+     ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "train", "train_pallas",
+      "mesh"),
      "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
@@ -3374,9 +3710,9 @@ SUMMARY = (
      "launches_per_eval"),
     ("int8_matmul", "int8_matmul", "int8_matmul", CSRC + "int8_matmul.cu",
      "i2v_adapter_tpu/ops/profile_int8_dense.py:103",
-     ("pipeline_int8", "scan", "serve", "serve_heads", "driver", "int8_tool"), "launches_per_eval"),
+     ("pipeline_int8", "scan", "serve", "serve_heads", "driver", "int8_tool", "mesh"), "launches_per_eval"),
     ("int8_conv3x3_kernel", "int8_conv3x3_kernel", "int8_conv3x3_kernel", CSRC + "int8_conv3x3.cu",
-     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "scan", "serve", "serve_heads", "driver"),
+     "i2v_adapter_tpu/models/layers.py:148", ("pipeline_int8", "scan", "serve", "serve_heads", "driver", "mesh"),
      "launches_per_clip"),
     ("quantize_weights", "quantize_weights", "quantize_weights", CSRC + "int8_conv3x3.cu",
      "i2v_adapter_tpu/models/layers.py:159", ("pipeline_int8", "scan", "serve", "serve_heads", "driver"),
@@ -3418,9 +3754,9 @@ def summary(rows, paths) -> dict:
         })
         for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run"),
                               ("validation", "launches_per_validation_clip"),
-                              ("latent", "launches_per_latent_run")):
+                              ("latent", "launches_per_latent_run"), ("mesh", "launches_per_mesh_eval")):
             if other != weight_key and any(r.get(other, 0) > 0 for r in cases):
-                extra = means(other, ("ms", "plain_ms", "bound_ms", "library_ms") if prefix == "latent"
+                extra = means(other, ("ms", "plain_ms", "bound_ms", "library_ms") if prefix in ("latent", "mesh")
                               else ("ms", "bound_ms", "library_ms"))[0]
                 out[-1].update({f"{prefix}_{k}": v for k, v in extra.items()})
         if any("dequant_ms" in r for r in main):
@@ -3437,6 +3773,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="CPU rehearsal at the tiny config with plain math (no card)")
+    ap.add_argument("--only", choices=("mesh",), default=None,
+                    help="mesh: the device, build and mesh phases alone (with the pretrained directory "
+                         "for the daemon on 4 cards), as a 4-card run takes them")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3453,6 +3792,16 @@ def main(argv=None) -> int:
 
     info = phase_device(rehearse)
     phase_build(rehearse)
+    if args.only == "mesh":
+        try:
+            ckpt = phase_pretrained(model_cfg, dev, rehearse) if mesh_shapes(
+                1 if rehearse else torch.cuda.device_count(), rehearse)[0] == (2, 1, 2) else {}
+            phase_mesh(model_cfg, dev, rehearse, ckpt)
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": _device_record(rehearse)})
+        return 0
     rows = phase_kernels(dev, rehearse)
     unet, fused_unet, forced_counts = phase_unet(model_cfg, dev, dtype, rehearse)
     layout_counts = phase_layouts(dev, rehearse)
@@ -3464,6 +3813,7 @@ def main(argv=None) -> int:
         serve_counts = phase_serve(model_cfg, dev, rehearse, ckpt)
         heads_counts = phase_serve_heads(model_cfg, dev, rehearse, ckpt)
         cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
+        mesh_counts = phase_mesh(model_cfg, dev, rehearse, ckpt)
         driver_counts, driver_t2i_counts = phase_driver(model_cfg, dev, rehearse, ckpt)
         latent_counts = phase_latent(model_cfg, dev, rehearse, ckpt)
     finally:
@@ -3480,7 +3830,8 @@ def main(argv=None) -> int:
         kernels = summary(rows, {
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
             "scan": scan_counts,
-            "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "driver": driver_counts,
+            "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "mesh": mesh_counts,
+            "driver": driver_counts,
             "driver_t2i": driver_t2i_counts, "latent": latent_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})
@@ -3489,12 +3840,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernels never launched on their main path: {idle}")
         emit(kernels)
     print(info["nvidia_smi"], flush=True)
-    if rehearse:
-        emit({"ok": True, "device": {"platform": "cpu", "kind": "cpu", "count": 1}})
-    else:
-        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": _device_record(rehearse)})
     return 0
+
+
+def _device_record(rehearse: bool) -> dict:
+    if rehearse:
+        return {"platform": "cpu", "kind": "cpu", "count": 1}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
 
 
 if __name__ == "__main__":

@@ -239,7 +239,9 @@ class PipelineConfig(_ConfigBase):
 @dataclass(frozen=True)
 class MeshConfig(_ConfigBase):
     """Device mesh layout of the JAX package (axis sizes, -1 = the rest).
-    The port trains on one card: only the default layout is accepted."""
+    Serving takes any layout (``parallel.mesh.create_mesh``, ``--mesh``);
+    training over a mesh is not ported, so ``TrainConfig`` accepts only the
+    default."""
 
     data: int = -1
     fsdp: int = 1

@@ -29,5 +29,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return device
 
 
+def rank_device(local_rank: int, device: DeviceLike = None) -> torch.device:
+    """The device of a mesh rank: card ``cuda:<local_rank>`` by default
+    (raises when the host has fewer cards); an explicit ``device="cpu"``
+    keeps every rank on the CPU."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the mesh's ranks on the CPU")
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError(f"rank {local_rank} of this host has no card: {torch.cuda.device_count()} visible")
+    return torch.device("cuda", local_rank)
+
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -18,11 +18,19 @@ import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.models.layers import ConvNHWC, GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import dot_product_attention
+from i2v_adapter_tpu_torch.parallel.spmd import (
+    current_attention_spmd,
+    first_frame_constraint,
+    row_parallel_out,
+    spmd_flash_attention,
+)
 
 
 class Attention(nn.Module):
     """Multi-head attention with the diffusers projection layout (to_q/to_k/
-    to_v without bias, to_out with bias)."""
+    to_v without bias, to_out with bias).  Over a mesh's ``tensor`` axis the
+    projections hold this rank's heads and ``tp_group`` is set
+    (``parallel.spmd.shard_tensor_parallel``)."""
 
     def __init__(
         self,
@@ -48,13 +56,20 @@ class Attention(nn.Module):
             self.to_k_ip = Linear(context_dim, inner, bias=False)
             self.to_v_ip = Linear(context_dim, inner, bias=False)
         self.to_out = Linear(inner, query_dim)
+        self.tp_group = None
 
     def _attend(self, q, k, v, kv_repeat):
         split = lambda x: x.view(x.shape[0], x.shape[1], self.heads, self.dim_head)
-        out = dot_product_attention(
-            split(q), split(k), split(v), kv_repeat=kv_repeat,
-            impl=self.attn_impl, static_max=self.static_max,
-        )
+
+        def call(q, k, v, kv_repeat):
+            return dot_product_attention(q, k, v, kv_repeat=kv_repeat, impl=self.attn_impl,
+                                         static_max=self.static_max)
+
+        ctx = current_attention_spmd()
+        if ctx is None:
+            out = call(split(q), split(k), split(v), kv_repeat)
+        else:
+            out = spmd_flash_attention(call, split(q), split(k), split(v), kv_repeat, ctx)
         return out.view(q.shape)
 
     def forward(self, hidden_states, encoder_hidden_states=None, kv_repeat: int = 1):
@@ -69,7 +84,7 @@ class Attention(nn.Module):
         if ip_ctx is not None:
             ip_out = self._attend(q, self.to_k_ip(ip_ctx), self.to_v_ip(ip_ctx), kv_repeat)
             out = out + self.ip_scale * ip_out
-        return self.to_out(out)
+        return row_parallel_out(self.to_out, out, self.tp_group)
 
 
 class FeedForward(nn.Module):
@@ -128,9 +143,14 @@ class TransformerBlock(nn.Module):
             bf = hidden_states.shape[0]
             if bf % num_frames != 0:
                 raise ValueError(f"batch {bf} not divisible by frames {num_frames}")
-            first_frame = norm_h.view(bf // num_frames, num_frames, *norm_h.shape[1:])[:, 0]
+            # over a mesh num_frames is this rank's; frame 0 comes from the
+            # seq rank that holds it, and the repeat passed is the clip's
+            ctx = current_attention_spmd()
+            first_frame = first_frame_constraint(
+                norm_h.view(bf // num_frames, num_frames, *norm_h.shape[1:])[:, 0])
             attn_out = attn_out + self.i2v_adapter(
-                norm_h, encoder_hidden_states=first_frame, kv_repeat=num_frames
+                norm_h, encoder_hidden_states=first_frame,
+                kv_repeat=num_frames * (1 if ctx is None else ctx.seq_size),
             )
         hidden_states = hidden_states + attn_out
         hidden_states = hidden_states + self.attn2(

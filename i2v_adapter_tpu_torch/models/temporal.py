@@ -4,7 +4,10 @@ GroupNorm over (C, F*H*W) per clip -> linear proj_in -> transformer blocks
 with double self-attention over the frame axis and interleaved sinusoidal
 positions (capped at ``max_seq_length``) -> linear proj_out -> residual.
 Activations stay (B, F, S, C) inside, as in the JAX package, and the frame
-attention runs through ``ops.attention.temporal_attention``.
+attention runs through ``ops.attention.temporal_attention``.  Over a mesh
+whose ``seq`` axis splits the frames, the norm's sums are all-reduced over
+``seq`` and the blocks run token-sharded where the tokens divide, else
+frame-sharded with K/V gathered (``parallel.spmd``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,16 @@ import torch.nn as nn
 from i2v_adapter_tpu_torch.models.attention import FeedForward
 from i2v_adapter_tpu_torch.models.layers import GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import temporal_attention
+from i2v_adapter_tpu_torch.parallel.spmd import (
+    current_attention_spmd,
+    motion_group_norm,
+    motion_layout,
+    motion_tokens_split,
+    row_parallel_out,
+    spmd_temporal_attention,
+    temporal_frame_constraint,
+    temporal_token_constraint,
+)
 
 
 def sinusoidal_positional_embedding(seq_len: int, dim: int, device=None) -> torch.Tensor:
@@ -37,17 +50,21 @@ class TemporalSelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, attn_impl: str = "auto"):
         super().__init__()
         inner = heads * dim_head
-        self.heads, self.attn_impl = heads, attn_impl
+        self.heads, self.dim_head, self.attn_impl = heads, dim_head, attn_impl
         self.to_q = Linear(dim, inner, bias=False)
         self.to_k = Linear(dim, inner, bias=False)
         self.to_v = Linear(dim, inner, bias=False)
         self.to_out = Linear(inner, dim)
+        self.tp_group = None  # set over a mesh's tensor axis (parallel.spmd)
 
     def forward(self, x):
-        out = temporal_attention(
-            self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads, impl=self.attn_impl
-        )
-        return self.to_out(out)
+        def call(q, k, v, heads):
+            return temporal_attention(q, k, v, heads=heads, impl=self.attn_impl)
+
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        ctx = current_attention_spmd()
+        out = call(q, k, v, self.heads) if ctx is None else spmd_temporal_attention(call, q, k, v, self.heads, ctx)
+        return row_parallel_out(self.to_out, out, self.tp_group)
 
 
 class TemporalBlock(nn.Module):
@@ -65,13 +82,18 @@ class TemporalBlock(nn.Module):
         self.norm3 = LayerNorm(dim, eps=norm_eps)
         self.ff = FeedForward(dim, gelu_tanh=gelu_tanh)
 
-    def forward(self, x):
+    def forward(self, x, frame_offset: int = 0, total_frames: int = 0):
+        """``frame_offset`` / ``total_frames``: where this rank's frames sit
+        in the clip when the frames are split over a mesh (positions are the
+        clip's)."""
         f = x.shape[1]
-        if f > self.max_seq_length:
+        total = total_frames or f
+        if total > self.max_seq_length:
             raise ValueError(
-                f"num_frames {f} exceeds motion positional-embedding cap {self.max_seq_length}"
+                f"num_frames {total} exceeds motion positional-embedding cap {self.max_seq_length}"
             )
-        pe = sinusoidal_positional_embedding(f, x.shape[-1], x.device).to(x.dtype)[None, :, None, :]
+        pe = sinusoidal_positional_embedding(frame_offset + f, x.shape[-1], x.device)[frame_offset:]
+        pe = pe.to(x.dtype)[None, :, None, :]
         x = x + self.attn1(self.norm1(x) + pe)
         x = x + self.attn2(self.norm2(x) + pe)
         return x + self.ff(self.norm3(x))
@@ -101,10 +123,27 @@ class TemporalTransformer(nn.Module):
             raise ValueError(f"batch {bf} not divisible by frames {num_frames}")
         b = bf // num_frames
         residual = x
+        ctx = current_attention_spmd()
         # GroupNorm jointly over (F, H, W) per clip: the norm couples frames
-        tokens = self.norm(x.reshape(b, num_frames * h * w, c))
-        tokens = self.proj_in(tokens.reshape(b, num_frames, h * w, c))
-        for i in range(self.num_layers):
-            tokens = getattr(self, f"transformer_blocks_{i}")(tokens)
-        tokens = self.proj_out(tokens)
+        flat = x.reshape(b, num_frames * h * w, c)
+        if ctx is None or ctx.seq_size == 1:
+            tokens = self.norm(flat)
+        else:
+            tokens = motion_group_norm(flat, self.norm.num_groups, self.norm.eps, self.norm.weight,
+                                       self.norm.bias)
+        tokens = tokens.reshape(b, num_frames, h * w, c)
+        if ctx is None:
+            return self._blocks(tokens).reshape(bf, h, w, c) + residual
+        split = motion_tokens_split(ctx, h * w)
+        with motion_layout(ctx, split):
+            if split:  # every frame local, a block of the tokens
+                tokens = temporal_frame_constraint(self._blocks(temporal_token_constraint(tokens)))
+            else:
+                tokens = self._blocks(tokens, ctx.frame_offset, ctx.frames)
         return tokens.reshape(bf, h, w, c) + residual
+
+    def _blocks(self, tokens, frame_offset: int = 0, total_frames: int = 0):
+        tokens = self.proj_in(tokens)
+        for i in range(self.num_layers):
+            tokens = getattr(self, f"transformer_blocks_{i}")(tokens, frame_offset, total_frames)
+        return self.proj_out(tokens)

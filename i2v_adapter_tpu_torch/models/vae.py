@@ -21,6 +21,8 @@ from i2v_adapter_tpu_torch.models.layers import (
     Upsample2D,
     set_int8,
 )
+from i2v_adapter_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, gather, shard
+from i2v_adapter_tpu_torch.parallel.spmd import attention_spmd
 
 
 class VAEAttention(nn.Module):
@@ -186,6 +188,22 @@ def decode_sliced(decode, z: torch.Tensor, slice_size: int = 1) -> torch.Tensor:
     if n % slice_size != 0:
         raise ValueError(f"{n} frames not divisible by slice {slice_size}")
     return torch.cat([decode(z[i:i + slice_size]) for i in range(0, n, slice_size)])
+
+
+def decode_sharded(decode, z: torch.Tensor, mesh) -> torch.Tensor:
+    """Frame-parallel decode over a serving mesh (the JAX ``decode_sharded``,
+    which the JAX sampler applies as its ``shard_flat`` layout): the frames
+    of ``z (N, h, w, c)`` split over ``data`` x ``seq``, each rank decoding
+    its block, the decoded frames gathered on every rank.  The int8
+    decoder's activation scales are the MAX over the blocks, the whole
+    batch's, as one decoder call on one card takes them.  Frames that do
+    not split decode whole on every rank."""
+    axes = (DATA_AXIS, SEQ_AXIS)
+    if mesh.size(axes) == 1 or z.shape[0] % mesh.size(axes):
+        return decode(z)
+    with attention_spmd(mesh, clip_split=True, frame_split=True):
+        video = decode(shard(z, 0, mesh, axes))
+    return gather(video, 0, mesh, axes)
 
 
 def decode_tiled(decode, z: torch.Tensor, tile_latent_size: int = 64,

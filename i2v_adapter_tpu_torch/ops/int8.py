@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from i2v_adapter_tpu_torch.ops import _build
+from i2v_adapter_tpu_torch.parallel.spmd import shared_activation_scale
 
 # rows of the float64 im2col the plain version multiplies at once on the card
 _PLAIN_ROWS = 1 << 16
@@ -205,9 +206,11 @@ def cached_weights(kernel: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.T
 
 def activation_scale(x: torch.Tensor) -> torch.Tensor:
     """``max(max |x|, 1e-12) / 127`` as a 0-d fp32 tensor on x's device, from
-    one read of x (``aminmax``)."""
+    one read of x (``aminmax``).  Inside a mesh's evaluation ``x`` is this
+    rank's slab, and the scale is the MAX over the slabs
+    (``parallel.spmd.shared_activation_scale``): the whole tensor's."""
     lo, hi = torch.aminmax(x)
-    return _div127(torch.clamp_min(torch.maximum(-lo, hi).float(), 1e-12))
+    return shared_activation_scale(_div127(torch.clamp_min(torch.maximum(-lo, hi).float(), 1e-12)))
 
 
 def quantize_activation(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

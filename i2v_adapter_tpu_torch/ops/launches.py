@@ -9,7 +9,8 @@ K3 ``attention.flash_attention`` / ``flash_attention_bwd``, K2
 at capture, where nothing runs, and runs it at every replay: the scan
 dispatch takes a capture's counts back (``restore``) and adds them at each
 replay (``add``), so the counts stay the launches that ran: ``capture``
-and ``replay`` do both.
+and ``replay`` do both, for the collectives' call count
+(``parallel.collectives.calls``, under the key ``"collectives"``) too.
 """
 
 from __future__ import annotations
@@ -57,19 +58,25 @@ def capture(body: Callable[[], None], pool=None) -> Tuple["torch.cuda.CUDAGraph"
     but at each ``replay``.  A failed capture raises."""
     import torch
 
-    before = snapshot()
+    from i2v_adapter_tpu_torch.parallel import collectives
+
+    before, calls = snapshot(), collectives.calls
     graph = torch.cuda.CUDAGraph()
     graph.capture_begin(pool=pool)
     try:
         body()
     finally:
         graph.capture_end()
-    counts = since(before)
+    counts = dict(since(before), collectives=collectives.calls - calls)
     restore(before)
+    collectives.calls = calls
     return graph, counts
 
 
 def replay(graph: "torch.cuda.CUDAGraph", counts: Dict[str, int]) -> None:
-    """Run a captured graph and count its launches."""
+    """Run a captured graph and count its launches (and collectives)."""
+    from i2v_adapter_tpu_torch.parallel import collectives
+
     graph.replay()
     add(counts)
+    collectives.calls += counts.get("collectives", 0)

@@ -5,7 +5,9 @@ row (GIF export needs ``imageio`` or PIL).
 
 Run: ``python -m i2v_adapter_tpu_torch.pipelines.cli --task_name X
 --checkpoint_epoch N --pretrained_model_path ... --eval_csv_path ...``
-(on the GPU; ``--device cpu`` runs on the CPU).
+(on the GPU; ``--device cpu`` runs on the CPU).  ``--mesh data,tensor,seq``
+runs each clip over several cards, one process per card (spawned here, or
+started by ``torchrun``); rank 0 writes the GIFs.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import argparse
 import csv
 import logging
 import os
+import sys
 
 logger = logging.getLogger(__name__)
 
@@ -37,7 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--fps", type=int, default=8)
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device serving mesh 'data,tensor,seq': not ported yet, refused")
+                   help="multi-card serving mesh 'data,tensor,seq': one process per card, spawned "
+                        "here or started by torchrun")
     p.add_argument("--dispatch", type=str, default="auto", choices=("auto", "scan", "stepwise"),
                    help="'stepwise' runs one synchronised device pass per denoise step; 'scan' "
                         "replays each step kind from a CUDA graph; 'auto' picks by the clip's work")
@@ -57,36 +61,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None, model_config=None) -> list:
-    """Generate one GIF per CSV row; returns their paths.  ``model_config``
-    (default: SD1.5, ``I2VModelConfig()``) is for callers that load another
-    architecture from code; the command line always loads SD1.5."""
-    from i2v_adapter_tpu_torch.config import PipelineConfig
-    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import I2VAdapterPipeline
-    from i2v_adapter_tpu_torch.pipelines.serve import adapter_checkpoint, refuse_mesh
+def _cli_rank(argv, model_config, mesh_config) -> list:
+    from i2v_adapter_tpu_torch.pipelines.serve import build_pipeline
     from i2v_adapter_tpu_torch.utils.image import load_image
 
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
-    refuse_mesh(args.mesh)
-    adapter_path = adapter_checkpoint(args.checkpoint_dir, args.task_name, args.checkpoint_epoch)
-    if adapter_path:
-        logger.info("using adapter checkpoint %s", adapter_path)
-    else:
-        logger.warning("no adapter checkpoint found; zero-init adapter")
-    pc = PipelineConfig(
-        num_frames=args.num_frames, height=args.height, width=args.width,
-        num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
-        frame_similarity_sample_ratio=args.frame_similarity_sample_ratio,
-        dtype=args.dtype, int8_conv=args.int8_conv,
-    )
-    pipe = I2VAdapterPipeline.from_pretrained(
-        args.pretrained_model_path, model_config=model_config, pipeline_config=pc,
-        i2v_adapter_path=adapter_path, device=args.device,
-    )
+    pipe, mesh = build_pipeline(args, model_config, mesh_config)
+    leader = mesh is None or mesh.rank == 0
     with open(args.eval_csv_path, newline="") as f:
         rows = list(csv.DictReader(f))
-    os.makedirs(args.output_dir, exist_ok=True)
+    if leader:
+        os.makedirs(args.output_dir, exist_ok=True)
     written = []
     for i, row in enumerate(rows):
         video = pipe(
@@ -94,10 +80,27 @@ def main(argv=None, model_config=None) -> list:
             negative_prompt=args.negative_prompt, seed=args.seed + i, dispatch=args.dispatch,
             encoder_cache=args.encoder_cache, cfg_cutoff=args.cfg_cutoff,
         )
-        out = pipe.export_gifs(video, os.path.join(args.output_dir, f"{args.task_name}_{i}"), fps=args.fps)
-        logger.info("[%d/%d] %s", i + 1, len(rows), out[0])
-        written.extend(out)
+        if leader:
+            out = pipe.export_gifs(video, os.path.join(args.output_dir, f"{args.task_name}_{i}"), fps=args.fps)
+            logger.info("[%d/%d] %s", i + 1, len(rows), out[0])
+            written.extend(out)
     return written
+
+
+def main(argv=None, model_config=None) -> list:
+    """Generate one GIF per CSV row; returns their paths.  ``model_config``
+    (default: SD1.5, ``I2VModelConfig()``) is for callers that load another
+    architecture from code; the command line always loads SD1.5."""
+    from i2v_adapter_tpu_torch.parallel.launch import run_meshed
+    from i2v_adapter_tpu_torch.parallel.mesh import parse_mesh
+
+    logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.mesh:
+        config = parse_mesh(args.mesh)
+        return run_meshed(_cli_rank, config, args.device, (argv, model_config, config))
+    return _cli_rank(argv, model_config, None)
 
 
 if __name__ == "__main__":

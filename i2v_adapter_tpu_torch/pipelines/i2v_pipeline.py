@@ -31,8 +31,14 @@ resnet / down / upsample 3x3 convs and the VAE decoder's convs in int8
 same weights; the int8 sites' quantised weights are built once per weights
 version (``models.layers.prepare_int8``), when the pipeline is built, when
 int8 is switched on and after a LoRA merge.  ``load_lora_weights`` and
-``load_textual_inversion`` are the reference's loaders.  Not ported yet
-(ROADMAP): meshes.
+``load_textual_inversion`` are the reference's loaders.
+
+``enable_mesh`` serves one clip over several cards, one process per card
+(``parallel``): every rank runs the encoders, the random draws and the DDIM
+update whole; each UNet evaluation's CFG-doubled clips split over ``data``
+and their frames over ``seq`` where they divide, the attention heads over
+``tensor``; its eps is gathered on every rank; the decode splits the frames
+over ``data`` x ``seq``.
 """
 
 from __future__ import annotations
@@ -58,11 +64,13 @@ from i2v_adapter_tpu_torch.models import (
     VideoUNet,
 )
 from i2v_adapter_tpu_torch.models.layers import prepare_int8
-from i2v_adapter_tpu_torch.models.vae import decode_sliced, decode_tiled
+from i2v_adapter_tpu_torch.models.vae import decode_sharded, decode_sliced, decode_tiled
 from i2v_adapter_tpu_torch.ops import launches
 from i2v_adapter_tpu_torch.ops.blur import gaussian_blur
 from i2v_adapter_tpu_torch.ops.freeu import FreeUParams
 from i2v_adapter_tpu_torch.ops.int8 import weights_key
+from i2v_adapter_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, gather, shard
+from i2v_adapter_tpu_torch.parallel.spmd import attention_spmd, shard_tensor_parallel, unshard_tensor_parallel
 from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_call, window_weight_tensors
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
 from i2v_adapter_tpu_torch.utils import convert
@@ -104,6 +112,35 @@ def step_kinds(n_steps: int, encoder_cache: int, n_cfg: int) -> List[str]:
     n_pairs = n_steps - n_steps % 2 if encoder_cache > 1 else 0
     return [("full" if i % 2 == 0 else "cached") if i < n_pairs else ("cfg" if i < n_cfg else "cond")
             for i in range(n_steps)]
+
+
+def meshed_unet_eval(mesh, evaluate, x: torch.Tensor, text_states: torch.Tensor, image_embeds):
+    """One UNet evaluation of ``x (rows, frames, h, w, c)`` over ``mesh``:
+    ``evaluate(x, text_states, image_embeds)`` runs on this rank's slab --
+    the rows (CFG-doubled clips) over ``data`` and the frames over ``seq``,
+    each where it divides, as the JAX ``shard_evals`` lays them out -- inside
+    the slab's ``attention_spmd`` context, and the eps is gathered on every
+    rank.  ``evaluate`` may also return the slab's down-path features
+    (``return_encoder``), which stay the rank's.  Without a mesh, just
+    ``evaluate`` on the whole input."""
+    if mesh is None:
+        return evaluate(x, text_states, image_embeds)
+    rows, frames = x.shape[:2]
+    clip_split = rows % mesh.size(DATA_AXIS) == 0
+    frame_split = frames % mesh.size(SEQ_AXIS) == 0
+    if clip_split:
+        x, text_states = shard(x, 0, mesh, DATA_AXIS), shard(text_states, 0, mesh, DATA_AXIS)
+        image_embeds = None if image_embeds is None else shard(image_embeds, 0, mesh, DATA_AXIS)
+    if frame_split:
+        x = shard(x, 1, mesh, SEQ_AXIS)
+    with attention_spmd(mesh, clip_split=clip_split, frame_split=frame_split, frames=frames):
+        out = evaluate(x, text_states, image_embeds)
+    eps, enc = out if isinstance(out, tuple) else (out, None)
+    if frame_split:
+        eps = gather(eps, 1, mesh, SEQ_AXIS)
+    if clip_split:
+        eps = gather(eps, 0, mesh, DATA_AXIS)
+    return eps if enc is None else (eps, enc)
 
 
 _SCAN_STREAMS: dict = {}
@@ -267,6 +304,7 @@ class I2VAdapterPipeline:
         # the last call's dispatch, and under 'scan' its captures' host ms
         # and the graphs' pool bytes
         self.last_dispatch: dict = {}
+        self.mesh = None
         self.prepare_int8()
 
     @classmethod
@@ -369,6 +407,37 @@ class I2VAdapterPipeline:
             value.set_int8(cfg.int8_decode)
         return value.to(self.device, self.dtype).eval()
 
+    # ------------------------------------------------------------------
+    # serving one clip over several cards
+    # ------------------------------------------------------------------
+
+    def enable_mesh(self, mesh) -> None:
+        """Serve over ``mesh`` (``parallel.mesh.create_mesh``, this rank's
+        place; every rank of the group calls this and then every request in
+        the same order): the UNet's attention projections sliced to this
+        rank's ``tensor`` heads, each evaluation split over ``data`` and
+        ``seq`` (``meshed_unet_eval``).  The kept step graphs are
+        dropped, as the JAX package clears its samplers; ``disable_mesh``
+        reverts."""
+        if getattr(self, "mesh", None) is not None:
+            self.disable_mesh()
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the pipeline on {self.device}")
+        shard_tensor_parallel(self.unet, mesh)
+        self.mesh = mesh
+        self.release_graphs()
+
+    def disable_mesh(self) -> None:
+        unshard_tensor_parallel(self.unet)
+        self.mesh = None
+        self.release_graphs()
+
+    def _mesh_parallelism(self) -> int:
+        """Ranks one evaluation's frame-evaluations split over: data x seq
+        (what the memory envelopes scale by, as in the JAX package)."""
+        mesh = getattr(self, "mesh", None)
+        return 1 if mesh is None else mesh.size((DATA_AXIS, SEQ_AXIS))
+
     def enable_int8_conv(self, enabled: bool = True) -> None:
         """Serving-mode int8 convs: the UNet's resnet / down / upsample 3x3s
         (``VideoUNetConfig.int8_conv``) and the VAE decoder's convs
@@ -402,6 +471,8 @@ class I2VAdapterPipeline:
         the UNet's weights; returns the number of patched layers.  The
         patched int8 sites are quantised again at once, and the kept step
         graphs are dropped (the next ``'scan'`` call captures afresh)."""
+        if getattr(self, "mesh", None) is not None:
+            raise ValueError("merge a LoRA before enable_mesh (the mesh slices the attention projections)")
         patched = lora.merge_lora(self.unet, convert.load_state_dict(path), scale)
         self.release_graphs()
         self.prepare_int8()
@@ -536,6 +607,7 @@ class I2VAdapterPipeline:
         # cycle, and a dropped pipeline's graphs would hold their pools until
         # the cyclic collector ran
         unet = self.unet
+        mesh = getattr(self, "mesh", None)
         scale = cfg.vae.scaling_factor
         f = num_frames
         sf = cfg.vae.spatial_scale_factor
@@ -594,10 +666,14 @@ class I2VAdapterPipeline:
             )
             return latents, (cond_latents, text_states, image_embeds)
 
-        def unet_eval(x, t, text_states, image_embeds, **kw):
+        def local_eval(x, t, text_states, image_embeds, **kw):
             ts = t.float().expand(x.shape[0]) if torch.is_tensor(t) else torch.full(
                 (x.shape[0],), float(t), device=dev)
             return unet(x.to(dtype), ts, text_states, image_embeds, enable_cross_frame_attn=has_condition, **kw)
+
+        def unet_eval(x, t, text_states, image_embeds, **kw):
+            return meshed_unet_eval(mesh, lambda xs, text, img: local_eval(xs, t, text, img, **kw), x,
+                                    text_states, image_embeds)
 
         def chunks(n):
             per = n // unet_chunk if unet_chunk > 1 and n % unet_chunk == 0 else n
@@ -692,7 +768,7 @@ class I2VAdapterPipeline:
             if vae_tiling:
                 video = decode_tiled(self.vae.decode, flat)
             elif decode_slice <= 0 or decode_slice >= batch * f:
-                video = self.vae.decode(flat)
+                video = self.vae.decode(flat) if mesh is None else decode_sharded(self.vae.decode, flat, mesh)
             else:
                 video = decode_sliced(self.vae.decode, flat, decode_slice)
             return video.reshape(batch, f, height, width, cfg.vae.out_channels).float()
@@ -887,14 +963,16 @@ class I2VAdapterPipeline:
         memory."""
         sf = self.config.vae.spatial_scale_factor
         tokens = (height // sf) * (width // sf)
-        if evals * tokens > self.MAX_EVAL_TOKENS:
-            max_batch = max(1, self.MAX_EVAL_TOKENS // (tokens * (evals // batch)))
+        # over a mesh each rank holds 1 / (data x seq) of an evaluation
+        budget = self.MAX_EVAL_TOKENS * self._mesh_parallelism()
+        if evals * tokens > budget:
+            max_batch = max(1, budget // (tokens * (evals // batch)))
             raise ValueError(
                 f"request of {evals} UNet frame-evals x {tokens} latent tokens exceeds the "
-                f"single-card memory envelope ({self.MAX_EVAL_TOKENS} eval-tokens, measured on an "
-                f"{self.MEMORY_BUDGET_CARD}).  Split the request into batches of <= {max_batch} "
-                f"clip(s) at this resolution, lower the resolution, or pass memory_unsafe=True "
-                f"on a larger device.")
+                f"memory envelope ({budget} eval-tokens: {self.MAX_EVAL_TOKENS} per card, measured on "
+                f"an {self.MEMORY_BUDGET_CARD}, x {self._mesh_parallelism()}).  Split the request into "
+                f"batches of <= {max_batch} clip(s) at this resolution, lower the resolution, or pass "
+                f"memory_unsafe=True on a larger device.")
 
     def _check_decode_envelope(self, frames: int, tokens: int) -> None:
         """Refuse a request whose decoder calls would each decode more frame
@@ -928,11 +1006,13 @@ class I2VAdapterPipeline:
         features (every window's and chunk's, alive across the step pair)
         exceed ``MAX_ENC_CACHE_BYTES``."""
         cached_evals, cache_bytes = self._encoder_cache_bytes(num_frames, height, width, batch, use_cfg, window)
-        if cache_bytes > self.MAX_ENC_CACHE_BYTES:
+        budget = self.MAX_ENC_CACHE_BYTES * self._mesh_parallelism()
+        if cache_bytes > budget:
             raise ValueError(
                 f"encoder_cache=2 would hold ~{cache_bytes / 1e9:.1f} GB of down-path features "
                 f"across the step pair ({cached_evals} cached frame-evals), over the "
-                f"{self.MAX_ENC_CACHE_BYTES / 1e9:.1f} GB cache budget measured on an "
+                f"{budget / 1e9:.1f} GB cache budget ({self.MAX_ENC_CACHE_BYTES / 1e9:.1f} GB per card x "
+                f"{self._mesh_parallelism()}) measured on an "
                 f"{self.MEMORY_BUDGET_CARD}.  Use a smaller batch or resolution, disable "
                 f"encoder_cache, or pass memory_unsafe=True on a larger device.")
 
@@ -1124,7 +1204,8 @@ class I2VAdapterPipeline:
             # (pooled graphs replay in capture order)
             kinds = tuple(dict.fromkeys(step_kinds(len(ts), encoder_cache, n_cfg)))
             key = (batch, num_frames, height, width, float(guidance), use_cfg, has_condition, unet_chunk,
-                   encoder_cache, kinds, self.config, self.pipe_config)
+                   encoder_cache, kinds, self.config, self.pipe_config,
+                   None if getattr(self, "mesh", None) is None else self.mesh.key())
             if 2 * concurrent_evals * tokens * self.EVAL_TOKEN_BYTES > beside_decode:
                 key = None  # its pool would not fit beside its decode: captured for this call only
         self._trim_graphs(beside_denoise, spare=key)

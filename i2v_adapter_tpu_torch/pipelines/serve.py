@@ -26,6 +26,16 @@ Request JSON fields (all but ``prompt`` + ``image`` optional):
 Run: ``python -m i2v_adapter_tpu_torch.pipelines.serve
 --pretrained_model_path ... --requests_dir requests/ --output_dir output/``
 (on the GPU; ``--device cpu`` runs on the CPU).
+
+``--mesh data,tensor,seq`` serves each clip over data x tensor x seq cards
+(``I2VAdapterPipeline.enable_mesh``), one process per card: run alone, the
+daemon spawns them (``--device cpu``: gloo ranks on the CPU); under
+``torchrun --nproc_per_node N`` each process is one.  Rank 0 claims each
+request and broadcasts it, every rank runs it, rank 0 exports the result
+and writes its JSON.  A request that fails on any rank fails on all (the
+ranks exchange their outcome after each request; ``failed_ranks`` in the
+result JSON), and every rank drops its step graphs and cached blocks
+before the next.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import threading
 import time
 
@@ -96,8 +107,9 @@ def _claim(path: str) -> str | None:
         return None
 
 
-def process_request(pipe, req: dict, out_prefix: str) -> dict:
-    """Run one request through the pipeline; returns the result record."""
+def process_request(pipe, req: dict, out_prefix: str, export: bool = True) -> dict:
+    """Run one request through the pipeline; returns the result record.
+    ``export=False`` (a mesh's other ranks) writes nothing."""
     from i2v_adapter_tpu_torch.utils import image as image_utils
 
     t0 = time.time()
@@ -106,22 +118,75 @@ def process_request(pipe, req: dict, out_prefix: str) -> dict:
     video = pipe(req["prompt"], condition_image=image, seed=int(req.get("seed", 0)), **kwargs)
     fmt = req.get("format", "gif")
     fps = int(req.get("fps", 8))
-    if fmt == "gif":
+    if fmt not in ("gif", "mp4", "npy"):
+        raise ValueError(f"unknown format {fmt!r} (gif/mp4/npy)")
+    if not export:
+        outputs = []
+    elif fmt == "gif":
         outputs = pipe.export_gifs(video, out_prefix, fps=fps)
     elif fmt == "mp4":
         outputs = [image_utils.export_to_mp4(video[i], f"{out_prefix}_{i}.mp4", fps=fps)
                    for i in range(video.shape[0])]
-    elif fmt == "npy":
+    else:
         outputs = [out_prefix + ".npy"]
         np.save(outputs[0], video)
-    else:
-        raise ValueError(f"unknown format {fmt!r} (gif/mp4/npy)")
     return {
         "ok": True,
         "outputs": outputs,
         "shape": list(video.shape),
         "latency_s": round(time.time() - t0, 3),
     }
+
+
+def _next_request(requests_dir: str, poll_interval: float, drain: bool):
+    """Claim the oldest request of the queue: ``(id, working path, request,
+    error)`` with the JSON's read error as ``"Type: message"``; None when
+    draining and the queue is empty (else wait for one)."""
+    while True:
+        pending = sorted(
+            (f for f in os.listdir(requests_dir) if f.endswith(".json")),
+            key=lambda f: os.path.getmtime(os.path.join(requests_dir, f)),
+        )
+        for name in pending:
+            working = _claim(os.path.join(requests_dir, name))
+            if working is None:
+                continue  # another worker took it
+            try:
+                with open(working) as f:
+                    return name[: -len(".json")], working, json.load(f), None
+            except Exception as e:  # noqa: BLE001 -- malformed JSON fails this request only
+                return name[: -len(".json")], working, None, f"{type(e).__name__}: {e}"
+        if drain:
+            return None
+        time.sleep(poll_interval)
+
+
+def _share(obj, mesh):
+    """Rank 0's ``obj`` on every rank of the mesh (over its gloo control
+    group); ``obj`` itself without one."""
+    if mesh is None or mesh.control is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=mesh.control)
+    return box[0]
+
+
+def _agree(result: dict, mesh) -> dict:
+    """Every rank's outcome of one request, made one: the first failing
+    rank's result with ``failed_ranks``, else rank 0's."""
+    if mesh is None or mesh.control is None:
+        return result
+    import torch.distributed as dist
+
+    results = [None] * dist.get_world_size(mesh.control)
+    dist.all_gather_object(results, result, group=mesh.control)
+    failed = [r for r, res in enumerate(results) if not res["ok"]]
+    if not failed:
+        return results[0]
+    return dict(results[failed[0]], failed_ranks=failed,
+                timed_out=any(res.get("timed_out", False) for res in results))
 
 
 def serve(
@@ -131,6 +196,7 @@ def serve(
     poll_interval: float = 0.5,
     max_requests: int | None = None,
     request_timeout: float | None = None,
+    mesh=None,
 ) -> int:
     """Serve until interrupted (or until ``max_requests`` are processed, or
     the queue is empty when ``max_requests`` is set).  Returns the number of
@@ -140,67 +206,64 @@ def serve(
     hangs the device fails with ``RequestTimeout`` and the loop returns, so
     that a supervisor restarts the worker (the stuck thread cannot be
     killed; process exit reaps it).  Size it for the slowest legitimate
-    request, kernel builds of a first request included."""
-    os.makedirs(requests_dir, exist_ok=True)
-    os.makedirs(output_dir, exist_ok=True)
+    request, kernel builds of a first request included.
+
+    With ``mesh`` (the pipeline's, after ``enable_mesh``) every rank of the
+    group calls this: rank 0 claims and writes, all ranks run each request
+    (see the module docstring)."""
+    leader = mesh is None or mesh.rank == 0
+    if leader:
+        os.makedirs(requests_dir, exist_ok=True)
+        os.makedirs(output_dir, exist_ok=True)
+        logger.info("serving %s -> %s", requests_dir, output_dir)
     done = 0
-    logger.info("serving %s -> %s", requests_dir, output_dir)
     while max_requests is None or done < max_requests:
-        pending = sorted(
-            (f for f in os.listdir(requests_dir) if f.endswith(".json")),
-            key=lambda f: os.path.getmtime(os.path.join(requests_dir, f)),
-        )
-        if not pending:
-            if max_requests is not None:
-                break  # drain mode: queue empty, stop
-            time.sleep(poll_interval)
-            continue
-        for name in pending:
-            if max_requests is not None and done >= max_requests:
-                break
-            working = _claim(os.path.join(requests_dir, name))
-            if working is None:
-                continue  # another worker took it
-            rid = name[: -len(".json")]
-            out_prefix = os.path.join(output_dir, rid)
-            t0 = time.time()
-            timed_out = False
-            try:
-                with open(working) as f:
-                    req = json.load(f)
-                result = _run_with_timeout(lambda: process_request(pipe, req, out_prefix), request_timeout)
-            except KeyboardInterrupt:
+        item = _next_request(requests_dir, poll_interval, max_requests is not None) if leader else None
+        item = _share(item, mesh)
+        if item is None:
+            break  # drain mode: queue empty, stop
+        rid, working, req, error = item
+        out_prefix = os.path.join(output_dir, rid)
+        t0 = time.time()
+        try:
+            if error is not None:
+                result = {"ok": False, "error": error}
+            else:
+                kw = {} if leader else {"export": False}
+                result = _run_with_timeout(lambda: process_request(pipe, req, out_prefix, **kw), request_timeout)
+        except KeyboardInterrupt:
+            if leader:
                 os.rename(working, working[: -len(".working")])  # un-claim
-                raise
-            except RequestTimeout as e:
-                timed_out = True
-                result = {"ok": False, "error": f"{type(e).__name__}: {e}",
-                          "latency_s": round(time.time() - t0, 3)}
-                logger.error("request %s timed out: %s", rid, result["error"])
-            except Exception as e:  # noqa: BLE001 -- a poison request (bad image,
-                # refused option, CUDA out of memory, NaN guard, malformed JSON)
-                # must never take the serving worker down
-                result = {"ok": False, "error": f"{type(e).__name__}: {e}",
-                          "latency_s": round(time.time() - t0, 3)}
-                logger.warning("request %s failed: %s", rid, result["error"], exc_info=True)
-            if not result["ok"]:
-                # the failed request's tensors are freed with its traceback;
-                # drop the kept step graphs and return the cached blocks, so
-                # the next request has the whole card
-                pipe.release_graphs()
-                if torch.cuda.is_initialized():
-                    torch.cuda.empty_cache()
+            raise
+        except RequestTimeout as e:
+            result = {"ok": False, "error": f"{type(e).__name__}: {e}", "timed_out": True}
+            logger.error("request %s timed out: %s", rid, result["error"])
+        except Exception as e:  # noqa: BLE001 -- a poison request (bad image,
+            # refused option, CUDA out of memory, NaN guard) must never take
+            # the serving worker down
+            result = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+            logger.warning("request %s failed: %s", rid, result["error"], exc_info=True)
+        result.setdefault("latency_s", round(time.time() - t0, 3))
+        result = _agree(result, mesh)
+        timed_out = result.pop("timed_out", False)
+        if not result["ok"]:
+            # the failed request's tensors are freed with its traceback;
+            # drop the kept step graphs and return the cached blocks, so
+            # the next request has the whole card
+            pipe.release_graphs()
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+        if leader:
             with open(out_prefix + ".result.json", "w") as f:
                 json.dump(result, f, indent=1)
             os.rename(working, working[: -len(".working")] + (".done" if result["ok"] else ".failed"))
-            done += 1
-            logger.info("[%d] %s %s (%.2fs)", done, rid, "ok" if result["ok"] else "FAILED",
-                        result["latency_s"])
-            if timed_out:
-                # the stuck request thread may hold a wedged device context:
-                # stop claiming work and let the supervisor restart the worker
-                logger.error("recycling worker after request timeout")
-                return done
+        done += 1
+        logger.info("[%d] %s %s (%.2fs)", done, rid, "ok" if result["ok"] else "FAILED", result["latency_s"])
+        if timed_out:
+            # the stuck request thread may hold a wedged device context:
+            # stop claiming work and let the supervisor restart the worker
+            logger.error("recycling worker after request timeout")
+            return done
     return done
 
 
@@ -227,7 +290,8 @@ def parse_args(argv=None):
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--int8_conv", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device serving mesh 'data,tensor,seq': not ported yet, refused")
+                   help="multi-card serving mesh 'data,tensor,seq': one process per card, spawned "
+                        "here or started by torchrun")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; 'cpu' runs on the CPU)")
     return p.parse_args(argv)
@@ -248,37 +312,58 @@ def adapter_checkpoint(checkpoint_dir: str, task_name: str | None, epoch: int | 
     return os.path.join(task_dir, f"epoch_{epoch}", "i2v_adapter", "diffusion_pytorch_model.safetensors")
 
 
-def refuse_mesh(mesh: str | None) -> None:
-    if mesh:
-        raise NotImplementedError(
-            f"--mesh {mesh}: multi-device serving is not ported yet (ROADMAP: multi-GPU)")
+def build_pipeline(args, model_config, mesh_config):
+    """The pipeline ``args`` ask for, on this rank's card with the mesh
+    enabled when ``mesh_config`` is given; returns ``(pipe, mesh)``."""
+    from i2v_adapter_tpu_torch.config import PipelineConfig
+    from i2v_adapter_tpu_torch.parallel.mesh import create_mesh
+    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import I2VAdapterPipeline
+
+    mesh = None if mesh_config is None else create_mesh(mesh_config, device=args.device)
+    adapter_path = adapter_checkpoint(args.checkpoint_dir, args.task_name, args.checkpoint_epoch)
+    if adapter_path:
+        logger.info("using adapter checkpoint %s", adapter_path)
+    else:
+        logger.warning("no adapter checkpoint found; zero-init adapter")
+    keys = ("num_frames", "height", "width", "num_inference_steps", "dtype", "int8_conv",
+            "guidance_scale", "frame_similarity_sample_ratio")
+    pc = PipelineConfig(**{k: getattr(args, k) for k in keys if hasattr(args, k)})
+    pipe = I2VAdapterPipeline.from_pretrained(
+        args.pretrained_model_path, model_config=model_config, pipeline_config=pc,
+        i2v_adapter_path=adapter_path, device=args.device if mesh is None else mesh.device,
+    )
+    if mesh is not None:
+        pipe.enable_mesh(mesh)
+        logger.info("serving over mesh %s, rank %d", mesh.shape, mesh.rank)
+    return pipe, mesh
+
+
+def _serve_rank(argv, model_config, mesh_config) -> int:
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
+    pipe, mesh = build_pipeline(args, model_config, mesh_config)
+    return serve(
+        pipe, args.requests_dir, args.output_dir,
+        poll_interval=args.poll_interval, max_requests=args.max_requests,
+        request_timeout=args.request_timeout, mesh=mesh,
+    )
 
 
 def main(argv=None, model_config=None) -> int:
     """Load the pipeline and serve.  ``model_config`` (default: SD1.5,
     ``I2VModelConfig()``) is for callers that load another architecture
-    from code; the command line always loads SD1.5."""
-    from i2v_adapter_tpu_torch.config import PipelineConfig
-    from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import I2VAdapterPipeline
+    from code; the command line always loads SD1.5.  With ``--mesh`` every
+    rank serves and rank 0's count is returned."""
+    from i2v_adapter_tpu_torch.parallel.launch import run_meshed
+    from i2v_adapter_tpu_torch.parallel.mesh import parse_mesh
 
     logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    refuse_mesh(args.mesh)
-    adapter_path = adapter_checkpoint(args.checkpoint_dir, args.task_name, args.checkpoint_epoch)
-    pc = PipelineConfig(
-        num_frames=args.num_frames, height=args.height, width=args.width,
-        num_inference_steps=args.num_inference_steps, dtype=args.dtype,
-        int8_conv=args.int8_conv,
-    )
-    pipe = I2VAdapterPipeline.from_pretrained(
-        args.pretrained_model_path, model_config=model_config, pipeline_config=pc,
-        i2v_adapter_path=adapter_path, device=args.device,
-    )
-    return serve(
-        pipe, args.requests_dir, args.output_dir,
-        poll_interval=args.poll_interval, max_requests=args.max_requests,
-        request_timeout=args.request_timeout,
-    )
+    if args.mesh:
+        config = parse_mesh(args.mesh)
+        return run_meshed(_serve_rank, config, args.device, (argv, model_config, config))
+    return _serve_rank(argv, model_config, None)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ where the kept ``StepGraphs`` runs its static-buffer program eagerly:
 * the invalidation points: each of the calls where the JAX package clears
   its ``_sampler_cache`` empties the port's cache at the same calls (the
   JAX pipeline driven through the same sequence with a dummy key in its
-  cache; ``enable_mesh`` / ``disable_mesh`` left out, the port refuses a
+  cache, ``enable_mesh`` / ``disable_mesh`` included, on a one-device
   mesh); a re-quantisation of the int8 weights; the trainer's validation
   swap (``training.driver._run_validation``) leaves no entry; an in-place
   weight write nobody announced makes the next call build afresh, its clip
@@ -25,16 +25,20 @@ import gc
 import types
 import weakref
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from i2v_adapter_tpu.config import MeshConfig as JMeshConfig
 from i2v_adapter_tpu.config import tiny_test_config as j_tiny
+from i2v_adapter_tpu.parallel import mesh as jmesh
 from i2v_adapter_tpu.pipelines.i2v_pipeline import I2VAdapterPipeline as JPipeline
 from i2v_adapter_tpu.utils.tokenizer import make_test_tokenizer as j_make_test_tokenizer
 from i2v_adapter_tpu_torch.config import PipelineConfig
 from i2v_adapter_tpu_torch.models.layers import int8_sites
+from i2v_adapter_tpu_torch.parallel import mesh as pmesh
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.training import driver as pdriver
 from i2v_adapter_tpu_torch.utils.convert import to_flax_tree
@@ -121,14 +125,14 @@ def test_another_bucket_builds_a_new_entry(pipe, change):
 
 
 INVALIDATIONS = ("enable_freeu", "disable_freeu", "enable_int8_conv", "disable_int8_conv", "load_lora_weights",
-                 "load_textual_inversion")
+                 "load_textual_inversion", "enable_mesh", "disable_mesh")
 
 
 def test_invalidation_points_match_jax(tmp_path):
     """Each of the JAX pipeline's cache-clearing calls, on both packages,
     with a key in each cache before it: both caches empty after the same
-    calls (``enable_mesh`` / ``disable_mesh`` excluded: the port refuses a
-    mesh)."""
+    calls (the mesh calls last, on a one-device mesh of each package: a LoRA
+    merges before ``enable_mesh``)."""
     (tmp_path / "p").mkdir()
     (tmp_path / "j").mkdir()
     tok, jtok = make_test_tokenizer(str(tmp_path / "p")), j_make_test_tokenizer(str(tmp_path / "j"))
@@ -149,7 +153,10 @@ def test_invalidation_points_match_jax(tmp_path):
              "enable_int8_conv": lambda q: q.enable_int8_conv(True),
              "disable_int8_conv": lambda q: q.enable_int8_conv(False),
              "load_lora_weights": lambda q: q.load_lora_weights(lora, scale=0.5),
-             "load_textual_inversion": lambda q: q.load_textual_inversion(emb, "<sks>")}
+             "load_textual_inversion": lambda q: q.load_textual_inversion(emb, "<sks>"),
+             "enable_mesh": lambda q: q.enable_mesh(meshes[q is p]), "disable_mesh": lambda q: q.disable_mesh()}
+    meshes = {True: pmesh.Mesh({"data": 1, "fsdp": 1, "tensor": 1, "seq": 1}, 0, p.device, {}),
+              False: jmesh.create_mesh(JMeshConfig(data=1, fsdp=1, tensor=1, seq=1), jax.devices()[:1])}
     cleared = {"port": [], "jax": []}
     for name in INVALIDATIONS:
         p._graph_cache()[("dummy",)] = types.SimpleNamespace(pool_bytes=0)

@@ -9,7 +9,8 @@ config on the CPU (2 frames, 32 px, 2 steps), mirroring
 * a request that runs out of device memory fails alone;
 * the per-request timeout fails a hanging request and recycles the worker;
 * the argparse surfaces equal the JAX package's (dests and defaults),
-  apart from ``--device``; ``--mesh`` is refused;
+  apart from ``--device``; ``--mesh`` refuses more ranks than cards and a
+  mesh that is not ``data,tensor,seq``;
 * ``find_latest_epoch`` against JAX;
 * ``cli.main`` on a one-row CSV with an adapter task written by the port's
   writer produces the GIF;
@@ -216,11 +217,19 @@ def test_argparse_surfaces_match_jax(argv):
 
 
 def test_mesh_is_refused(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="--mesh 2,1,2"):
-        serve.main(["--pretrained_model_path", setup["pretrained"], "--mesh", "2,1,2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--mesh 1,1,2"):
+    """``--mesh`` serves (``tests/test_torch_port_mesh.py``); what it cannot
+    run is refused before anything loads: more ranks than the host has
+    cards, and a mesh that is not ``data,tensor,seq``."""
+    with pytest.raises(ValueError, match="needs 64 cards"):
+        serve.main(["--pretrained_model_path", setup["pretrained"], "--mesh", "16,2,2"])
+    with pytest.raises(ValueError, match="data,tensor,seq"):
+        serve.main(["--pretrained_model_path", setup["pretrained"], "--mesh", "2,2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="needs 64 cards"):
         cli.main(["--task_name", "t", "--pretrained_model_path", setup["pretrained"],
-                  "--eval_csv_path", str(tmp_path / "e.csv"), "--mesh", "1,1,2", "--device", "cpu"])
+                  "--eval_csv_path", str(tmp_path / "e.csv"), "--mesh", "16,2,2"])
+    with pytest.raises(ValueError, match="data,tensor,seq"):
+        cli.main(["--task_name", "t", "--pretrained_model_path", setup["pretrained"],
+                  "--eval_csv_path", str(tmp_path / "e.csv"), "--mesh", "1,x,2", "--device", "cpu"])
 
 
 LAYOUTS = {"missing": None, "empty": [], "one": ["epoch_1"],
