@@ -103,6 +103,24 @@ Phases, one JSON line each, in order:
                    step's collectives (count, bytes, ms; held to
                    ``parallel.audit``'s formula).  ``--only mesh`` runs the
                    device, build and mesh phases alone
+9a'. ``mesh_train`` -- the train step over a mesh of ranks, one per visible
+                   card, at config 4 (SD1.5 widths, 2 clips x 16 frames a
+                   data x fsdp way, 256 px, bf16, remat, AdamW; seeded
+                   random weights, a synthetic batch): on 1 card the
+                   (1,1,1,1) mesh through a spawned rank, its first step's
+                   loss and trainable gradients and two steps equal bit for
+                   bit to the unmeshed step's (within the gradcheck limits
+                   only if the unmeshed step itself does not repeat bit for
+                   bit); on 4 cards (``--only mesh_train``) the JAX audit's
+                   train meshes that fit them: (4,1,1,1), (2,2,1,1) with the
+                   frozen weights sharded and replicated, (2,1,1,2),
+                   (2,1,2,1) and the 512 px motion finetune at (1,2,1,2)
+                   with 1 clip a way, each rank's gradients against one
+                   card's weighted micro-batches of 2 clips within the
+                   gradcheck limits, step ms (mean of steps 2-5), one
+                   step's collectives (count, bytes, ms; held to
+                   ``collectives_per_train_step``), each rank's peak memory
+                   and K1 / K2 / K3 launches (held to the local counts)
 9b. ``driver``  -- ``training/driver.py``'s ``main`` on that directory at the
                    reference training workload (config 4, EMA) over 12
                    WebVid-layout clips (64 frames at 336 x 256, OpenCV's
@@ -687,7 +705,7 @@ def _flash_case(name, bq, bkv, n, d, static_max, dev, iters, weight, row_major=F
     return row, ok
 
 
-def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
+def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight, heads=8, other_weights=None):
     """One K3 shape: kernel vs plain in fp32 and bf16 from K1's own o and
     lse (static offset 64, as the training path runs it), then bf16 times:
     the kernel, its plain version and the backward of SDPA through
@@ -700,7 +718,7 @@ def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
         flash_attention_bwd,
     )
 
-    h = 8
+    h = heads
     g = torch.Generator(device=dev).manual_seed(bq * 7919 + n * 31 + d + 1)
     rep = bq // bkv
     scale = 1.0 / math.sqrt(d)
@@ -709,7 +727,7 @@ def _flash_bwd_case(name, bq, bkv, n, d, dev, iters, weight):
     v32 = torch.randn(bkv, n, h, d, generator=g, device=dev)
     g32 = torch.randn(bq, n, h, d, generator=g, device=dev)
     row = {"name": name, "bq": bq, "bkv": bkv, "kv_repeat": rep, "n": n, "d": d, "heads": h,
-           "static_max": 64.0, "launches_per_step": weight}
+           "static_max": 64.0, "launches_per_step": weight, **(other_weights or {})}
     ok = True
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         q, k, v, do = (x.to(dt) for x in (q32, k32, v32, g32))
@@ -1084,6 +1102,36 @@ MESH_TEMPORAL_CASES = (
     ("mesh (2,2,1) motion S256 C640 H4", 1, 16, 256, 640, 4, 10),
 )
 
+# the shapes each rank gives K3 and K2 in the mesh_train phase's 4-card
+# train steps (config 4 at 256 px, 2 clips a data x fsdp way; the 512 px
+# motion finetune at 1 clip a way), weighted by launches per meshed train
+# step: K3 at the adapter's local kv_repeat (16 frames over seq 2: 8; over
+# seq 4: 4, a shape no 4-card case takes) and with the heads split over
+# tensor; K2 token-sharded (S / seq, C / tensor), forward and recompute.
+# (name, bq, bkv, n, d, heads, launches per meshed train step)
+MESH_TRAIN_BWD_CASES = (
+    ("mesh train (2,1,1,2) attn1 N1024 D40", 16, 16, 1024, 40, 8, 4),
+    ("mesh train (2,1,1,2) adapter N1024 D40 rep8", 16, 2, 1024, 40, 8, 5),
+    ("mesh train (2,1,2,1) attn1 N1024 D40 H4", 32, 32, 1024, 40, 4, 4),
+    ("mesh train (2,1,2,1) adapter N1024 D40 H4 rep16", 32, 2, 1024, 40, 4, 5),
+    ("mesh train 512px (1,2,1,2) attn1 N4096 D40", 8, 8, 4096, 40, 8, 4),
+    ("mesh train 512px (1,2,1,2) adapter N4096 D40 rep8", 8, 1, 4096, 40, 8, 5),
+    ("mesh train 512px (1,2,1,2) attn1 N1024 D80", 8, 8, 1024, 80, 8, 5),
+    ("mesh train 512px (1,2,1,2) adapter N1024 D80 rep8", 8, 1, 1024, 80, 8, 5),
+    ("mesh train seq 4 adapter N1024 D40 rep4", 8, 2, 1024, 40, 8, 0),
+)
+# (name, b, frames, local S, C, heads, launches per meshed train step)
+MESH_TRAIN_TEMPORAL_CASES = (
+    ("mesh train (2,1,1,2) motion S512 C320", 2, 16, 512, 320, 8, 20),
+    ("mesh train (2,1,1,2) motion S128 C640", 2, 16, 128, 640, 8, 20),
+    ("mesh train (2,1,2,1) motion S1024 C160 H4", 2, 16, 1024, 160, 4, 20),
+    ("mesh train (2,1,2,1) motion S256 C320 H4", 2, 16, 256, 320, 4, 20),
+    ("mesh train 512px (1,2,1,2) motion S2048 C320", 1, 16, 2048, 320, 8, 20),
+    ("mesh train 512px (1,2,1,2) motion S512 C640", 1, 16, 512, 640, 8, 20),
+    ("mesh train 512px (1,2,1,2) motion S128 C1280", 1, 16, 128, 1280, 8, 20),
+    ("mesh train seq 4 motion S256 C320", 2, 16, 256, 320, 8, 0),
+)
+
 
 def phase_kernels(dev, rehearse: bool):
     """Every serving shape at 512px / 16 frames / CFG (Bq = 32 frame-evals,
@@ -1307,6 +1355,16 @@ def phase_kernels(dev, rehearse: bool):
     for name, b, f, seq_s, c, heads, w in MESH_TEMPORAL_CASES:
         row, ok = _temporal_case(name, b, f, f, seq_s, c, dev, 10, 0, heads=heads,
                                  other_weights={"launches_per_mesh_eval": w})
+        rows["temporal_attention_cs"].append(row)
+        failed += [] if ok else [row["name"]]
+    for name, bq, bkv, n, d, heads, w in MESH_TRAIN_BWD_CASES:
+        row, ok = _flash_bwd_case(name, bq, bkv, n, d, dev, 5, 0, heads=heads,
+                                  other_weights={"launches_per_mesh_train_step": w})
+        rows["flash_attention_bwd"].append(row)
+        failed += [] if ok else ["bwd " + row["name"]]
+    for name, b, f, seq_s, c, heads, w in MESH_TRAIN_TEMPORAL_CASES:
+        row, ok = _temporal_case(name, b, f, f, seq_s, c, dev, 10, 0, heads=heads,
+                                 other_weights={"launches_per_mesh_train_step": w})
         rows["temporal_attention_cs"].append(row)
         failed += [] if ok else [row["name"]]
     emit({"phase": "kernels", "tol_fp32": TOL_FP32, "tol_bf16": TOL_BF16,
@@ -2808,6 +2866,265 @@ def phase_mesh(model_cfg, dev, rehearse: bool, ckpt: dict):
     return {k: sum(m["clip_launches"][k] for m in recs[0]["meshes"]) for k in KERNELS}
 
 
+# the mesh_train phase: the train step over a mesh of ranks, one per card
+MESH_TRAIN_STEPS = 2  # one card: two steps beside the unmeshed ones
+MESH_TRAIN_TIMED_STEPS = 5  # four cards: step ms is the mean of steps 2-5
+MESH_TRAIN_MICRO_CLIPS = 2  # the one-card reference's micro-batch
+MESH_TRAIN_TIMEOUT_S = 900
+
+
+def mesh_train_cases(cards: int, rehearse: bool) -> list:
+    """The phase's meshes: ``(name, (data, fsdp, tensor, seq), fsdp_frozen,
+    size, clips per data x fsdp way, motion modules trained)``.  On four
+    cards the JAX audit's train meshes that fit them (config 4 at 256 px,
+    2 clips a way; the 512 px motion finetune at 1 clip a way); on one card
+    the (1,1,1,1) mesh; two gloo ranks in the rehearsal."""
+    if rehearse:
+        return [("1,2,1,1", (1, 2, 1, 1), "shard", 32, 1, False),
+                ("1,1,1,2", (1, 1, 1, 2), "shard", 32, 1, False)]
+    if cards >= 4:
+        from i2v_adapter_tpu_torch.tools.audit_multichip import TRAIN_CASES
+
+        return [(name,) + case for name, case in TRAIN_CASES.items()]
+    return [("1,1,1,1", (1, 1, 1, 1), "shard", 256, 2, False)]
+
+
+def mesh_train_launches_per_step(ucfg, latent: int, tcfg, seq: int) -> dict:
+    """One rank's kernel launches for one meshed train step: K1 and K3 as on
+    one card (each site runs once on the rank's slab; the key counts are
+    the spatial tokens, which no axis splits), K2 at the motion modules
+    whose local token count (S / seq when the frames and the tokens split,
+    else S) reaches 128, in the forward and its recompute."""
+    per = dict(launches_per_train_step(ucfg, latent, tcfg))
+    split = seq > 1 and tcfg.num_frames % seq == 0
+    n = ucfg.num_blocks
+    levels = [(latent >> i, ucfg.layers_per_block, ucfg.use_motion_modules) for i in range(n)]
+    levels.append((latent >> (n - 1), 1, ucfg.use_motion_modules and ucfg.use_motion_mid_block))
+    levels += [(latent >> (n - 1 - i), ucfg.layers_per_block + 1, ucfg.use_motion_modules) for i in range(n)]
+    temporal = 0
+    for h, layers, motion in levels:
+        tokens = h * h
+        local = tokens // seq if split and tokens % seq == 0 else tokens
+        temporal += 2 * layers if motion and local >= 128 else 0
+    per["temporal_attention_cs"] = temporal * (2 if tcfg.gradient_checkpointing else 1)
+    return per
+
+
+def _mesh_train_config(case, rehearse: bool):
+    from i2v_adapter_tpu_torch.config import MeshConfig, reference_train_config
+
+    _, sizes, frozen, size, clips, motion = case
+    tc = reference_train_config().replace(
+        train_batch_size=clips * sizes[0] * sizes[1], resolution=size, update_motion_modules=motion,
+        fsdp_frozen=frozen, mesh=MeshConfig(*sizes), uncond_prob_t=0.1, uncond_prob_i=0.1)
+    if rehearse:
+        tc = tc.replace(num_frames=4, mixed_precision="none", freeze_dtype="float32")
+    return tc
+
+
+def _whole_grads(state, grads: dict) -> dict:
+    """The trainables' gradients whole (blocks gathered; every rank calls)."""
+    from i2v_adapter_tpu_torch.training.checkpoint import state_entries
+
+    if state.zero is None:
+        return grads
+    names = {param: name for name, _, _, _, param in state_entries(state) if name.startswith("trainable/")}
+    return {n: state.zero.gather(names[n], g) for n, g in grads.items()}
+
+
+def _mesh_train_reference(model_cfg, tc, batch, draws, dev, one_card: bool) -> dict:
+    """One card's gradients of the global batch: on the (1,1,1,1) mesh the
+    unmeshed step's (twice, to see whether the kernels' sums repeat bit for
+    bit) and its two steps; over several cards the weighted sum of its
+    micro-batches of ``MESH_TRAIN_MICRO_CLIPS`` clips (the global loss is a
+    mean over clips)."""
+    from i2v_adapter_tpu_torch.training import make_train_step
+    from i2v_adapter_tpu_torch.training.train_i2v import local_draws
+    from i2v_adapter_tpu_torch.utils.random_init import random_train_state
+
+    state = random_train_state(model_cfg, tc, dev, seed=1)
+    step = make_train_step(model_cfg, tc, device=dev)
+    b, f = tc.train_batch_size, tc.num_frames
+    if one_card:
+        loss, grads = step.loss_and_grads(state, batch, draws)
+        again = step.loss_and_grads(state, batch, draws)
+        repeats = bool(torch.equal(loss, again[0]) and all(torch.equal(grads[n], again[1][n]) for n in grads))
+        losses, step_ms = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, draws=draws if i == 0 else None)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        return {"loss": loss, "grads": grads, "repeats_bit_for_bit": repeats, "losses": losses,
+                "step_ms": step_ms,
+                "trainables": {n: p.detach().clone() for n, p in state.trainable_params().items()}}
+    grads, loss = None, 0.0
+    micro = MESH_TRAIN_MICRO_CLIPS
+    for lo in range(0, b, micro):
+        hi = min(lo + micro, b)
+        part = {k: v[lo:hi] for k, v in batch.items()}
+        l_mb, g_mb = step.loss_and_grads(state, part, local_draws(draws, (lo, hi), (0, f)))
+        w = (hi - lo) / b
+        loss = loss + w * float(l_mb)
+        grads = {n: w * g for n, g in g_mb.items()} if grads is None else {n: grads[n] + w * g_mb[n]
+                                                                             for n in grads}
+    return {"loss": loss, "grads": grads}
+
+
+def _mesh_train_rank(cases, model_cfg, rehearse: bool) -> list:
+    """One rank of the mesh_train phase: per case the state placed over the
+    mesh (seeded random weights, the same on every rank), the first step's
+    loss and gradients against one card's on the same global batch and
+    draws (computed on rank 0 first), then the steps: on one card
+    ``MESH_TRAIN_STEPS`` beside the unmeshed ones, over several cards 1 +
+    ``MESH_TRAIN_TIMED_STEPS`` timed and one more recorded for the
+    collectives; this rank's launches per step and peak memory."""
+    import torch.distributed as dist
+
+    from i2v_adapter_tpu_torch.config import MeshConfig
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.parallel.mesh import create_mesh, local_batch
+    from i2v_adapter_tpu_torch.tools.audit_multichip import audit_train_step
+    from i2v_adapter_tpu_torch.training import make_train_step
+    from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
+
+    dev = torch.device("cpu") if rehearse else torch.device("cuda", torch.cuda.current_device())
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    recs = []
+    for case in cases:
+        name, sizes = case[0], case[1]
+        tc = _mesh_train_config(case, rehearse)
+        mesh = create_mesh(MeshConfig(*sizes), device=dev)
+        one_card = mesh.size(("data", "fsdp", "tensor", "seq")) == 1
+        batch = random_train_batch(model_cfg, tc, dev, seed=0)
+        draws = make_train_step(model_cfg, tc, device=dev).draws(
+            None, batch, torch.Generator(device=dev).manual_seed(tc.seed))
+        ref = None
+        if mesh.rank == 0:
+            ref = _mesh_train_reference(model_cfg, tc, batch, draws, dev, one_card)
+        if mesh.control is not None:
+            dist.barrier(group=mesh.control)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        state = random_train_state(model_cfg, tc, dev, seed=1, mesh=mesh)
+        step = make_train_step(model_cfg, tc, mesh=mesh)
+        local = local_batch(batch, mesh)
+        loss, grads = step.loss_and_grads(state, local, draws)
+        grads = _whole_grads(state, grads)
+        rec = {"mesh": name, "sizes": list(sizes), "fsdp_frozen": tc.fsdp_frozen, "resolution": tc.resolution,
+               "global_batch": tc.train_batch_size, "motion": tc.update_motion_modules, "loss": float(loss)}
+        if ref is not None:
+            rec["reference_loss"] = float(ref["loss"])
+            rec["grad_errors"] = grad_errors(grads, ref["grads"])
+            if one_card:
+                rec["repeats_bit_for_bit"] = ref["repeats_bit_for_bit"]
+                rec["unmeshed_step_ms"] = ref["step_ms"]
+                rec["grads_bit_for_bit"] = bool(torch.equal(loss, ref["loss"]) and all(
+                    torch.equal(grads[n], ref["grads"][n]) for n in grads))
+        del grads
+        steps = MESH_TRAIN_STEPS if one_card else 1 + MESH_TRAIN_TIMED_STEPS
+        launches.reset()
+        step_ms, losses = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, local, draws=draws if i == 0 else None)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        rec["launches"] = launches.snapshot()
+        rec["steps"] = steps
+        rec["step_ms"] = step_ms
+        rec["losses"] = [float(x) for x in losses]
+        if one_card and ref is not None:
+            after = state.trainable_params()
+            rec["steps_bit_for_bit"] = bool(all(torch.equal(a, b) for a, b in zip(losses, ref["losses"])) and all(
+                torch.equal(after[n].detach(), ref["trainables"][n]) for n in after))
+        if not one_card:
+            rec["step_ms_mean_2_5"] = float(np.mean(step_ms[1:]))
+            audit = audit_train_step(state, step, local, mesh, model_cfg, tc, warm_up=False)
+            rec["collectives"] = {k: {"count": v["count"], "bytes": v["out_bytes"], "ms": v["ms"],
+                                      "wire_bytes_per_device": v["wire_bytes_per_device"],
+                                      "bound_ms": v["wire_bytes_per_device"] / PEAK_NVLINK_BYTES * 1e3}
+                                  for k, v in audit["summary"]["by_kind"].items()}
+            rec["collectives_ms_per_step"] = audit["summary"]["ms"]
+            rec["collectives_expected"] = audit["expected"]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+        recs.append(rec)
+        del state, step, ref
+        if cuda:
+            torch.cuda.empty_cache()
+    return recs
+
+
+def phase_mesh_train(model_cfg, dev, rehearse: bool):
+    """The train step over a mesh of ranks, one per visible card, spawned by
+    ``parallel.launch.run_ranks``: per case of ``mesh_train_cases`` the
+    first step's loss and every trainable gradient against one card's on
+    the same global batch and draws (on the (1,1,1,1) mesh the unmeshed
+    step's, equal bit for bit unless the unmeshed step itself does not
+    repeat bit for bit, then within the ``gradcheck`` limits; over several
+    cards the weighted sum of one card's micro-batches, within the
+    ``gradcheck`` limits), each rank's K1 / K2 / K3 launches per step
+    against ``mesh_train_launches_per_step``, peak memory, step ms and,
+    over several cards, one step's collectives (count, bytes, ms) against
+    ``collectives_per_train_step``.  Any rank failing or hanging fails the
+    phase."""
+    from i2v_adapter_tpu_torch.parallel.launch import run_ranks
+
+    cards = 2 if rehearse else torch.cuda.device_count()
+    cases = mesh_train_cases(cards, rehearse)
+    ranks = int(np.prod(cases[0][1]))
+    if not rehearse:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = run_ranks(_mesh_train_rank, ranks, (cases, model_cfg, rehearse), device="cpu" if rehearse else None,
+                     timeout=MESH_TRAIN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    failed, lines = [], []
+    for i, case in enumerate(cases):
+        per = [r[i] for r in recs]
+        m = dict(per[0])
+        tc = _mesh_train_config(case, rehearse)
+        latent = tc.resolution // model_cfg.vae.spatial_scale_factor
+        per_step = mesh_train_launches_per_step(model_cfg.unet, latent, tc, case[1][3])
+        want = expected_counts(**{k: 0 if rehearse else m["steps"] * v for k, v in per_step.items()})
+        m.update(launches_per_rank=[r["launches"] for r in per], expected_launches=want,
+                 launches_per_step=per_step, peak_gb_per_rank=[r["peak_gb"] for r in per],
+                 step_ms_per_rank=[r["step_ms"] for r in per])
+        for key in ("launches", "peak_gb"):
+            m.pop(key, None)
+        name = m["mesh"]
+        if any(r["launches"] != want for r in per):
+            failed.append(f"{name}: launches per rank {[r['launches'] for r in per]} != {want}")
+        if not all(math.isfinite(x) for x in m["losses"]):
+            failed.append(f"{name}: losses {m['losses']}")
+        if "collectives" in m:
+            counts = {k: v["count"] for k, v in m["collectives"].items()}
+            if counts != m["collectives_expected"]:
+                failed.append(f"{name}: collectives {counts} != {m['collectives_expected']}")
+        e = m["grad_errors"]
+        if m.get("repeats_bit_for_bit", False):
+            if not (m["grads_bit_for_bit"] and m["steps_bit_for_bit"]):
+                failed.append(f"{name}: not equal bit for bit to the unmeshed step ({e})")
+        elif not rehearse and not within_grad_limits(e):
+            failed.append(f"{name}: gradients against one card outside the gradcheck limits ({e})")
+        elif not math.isfinite(e["rel_l2"]):
+            failed.append(f"{name}: non-finite gradients ({e})")
+        lines.append(m)
+    emit({"phase": "mesh_train", "ranks": ranks, "cards": cards, "seconds": seconds, "cases": lines,
+          "nvlink_bytes_per_s": PEAK_NVLINK_BYTES,
+          "limits": {"rel_l2_max": GRAD_REL_L2_MAX, "leaf_rel_l2_max": GRAD_LEAF_REL_L2_MAX,
+                     "cosine_min": GRAD_COSINE_MIN}})
+    if failed:
+        raise AssertionError(f"mesh_train: {failed}")
+    # rank 0's launches over the cases' steps
+    return {k: sum(r["launches"][k] for r in recs[0]) for k in KERNELS}
+
+
 # the driver phase: clips written in the WebVid layout, trained on through
 # training/driver.py and served from what it wrote
 DRIVER_TASK = "driver_task"
@@ -3690,16 +4007,16 @@ SUMMARY = (
     ("flash_attention", "flash_attention", "flash_attention", CSRC + "flash_attention.cu",
      "i2v_adapter_tpu/ops/attention.py:143",
      ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "driver_t2i", "train",
-      "train_pallas", "latent", "mesh"),
+      "train_pallas", "latent", "mesh", "mesh_train"),
      "launches_per_eval"),
     ("temporal_attention_cs", "temporal_attention_cs", "temporal_attention_cs",
      CSRC + "temporal_attention.cu", "i2v_adapter_tpu/ops/attention.py:985",
      ("pipeline", "pipeline_pallas", "scan", "serve", "serve_heads", "cli", "driver", "train", "train_pallas",
-      "mesh"),
+      "mesh", "mesh_train"),
      "launches_per_eval"),
     ("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd",
      CSRC + "flash_attention_bwd.cu", "i2v_adapter_tpu/ops/attention.py:518",
-     ("driver", "driver_t2i", "train", "train_pallas", "latent"), "launches_per_step"),
+     ("driver", "driver_t2i", "train", "train_pallas", "latent", "mesh_train"), "launches_per_step"),
     ("conv3x3_kernel", "conv3x3_kernel", "conv3x3_kernel", CSRC + "conv3x3.cu",
      "i2v_adapter_tpu/ops/conv3x3.py:44", ("pipeline_pallas", "scan", "train_pallas"), "launches_per_eval"),
     ("flash_attention[transposed_io=False]", "flash_attention_row_major", "flash_attention",
@@ -3754,10 +4071,11 @@ def summary(rows, paths) -> dict:
         })
         for prefix, other in (("train", "launches_per_step"), ("tool", "launches_per_tool_run"),
                               ("validation", "launches_per_validation_clip"),
-                              ("latent", "launches_per_latent_run"), ("mesh", "launches_per_mesh_eval")):
+                              ("latent", "launches_per_latent_run"), ("mesh", "launches_per_mesh_eval"),
+                              ("mesh_train", "launches_per_mesh_train_step")):
             if other != weight_key and any(r.get(other, 0) > 0 for r in cases):
-                extra = means(other, ("ms", "plain_ms", "bound_ms", "library_ms") if prefix in ("latent", "mesh")
-                              else ("ms", "bound_ms", "library_ms"))[0]
+                extra = means(other, ("ms", "plain_ms", "bound_ms", "library_ms")
+                              if prefix in ("latent", "mesh", "mesh_train") else ("ms", "bound_ms", "library_ms"))[0]
                 out[-1].update({f"{prefix}_{k}": v for k, v in extra.items()})
         if any("dequant_ms" in r for r in main):
             out[-1].update({k: means(weight_key, (k,))[0][k] for k in ("dequant_ms", "dequant_bound_ms")})
@@ -3773,9 +4091,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="CPU rehearsal at the tiny config with plain math (no card)")
-    ap.add_argument("--only", choices=("mesh",), default=None,
+    ap.add_argument("--only", choices=("mesh", "mesh_train"), default=None,
                     help="mesh: the device, build and mesh phases alone (with the pretrained directory "
-                         "for the daemon on 4 cards), as a 4-card run takes them")
+                         "for the daemon on 4 cards), as a 4-card run takes them; mesh_train: the device, "
+                         "build and mesh_train phases alone")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3792,6 +4111,11 @@ def main(argv=None) -> int:
 
     info = phase_device(rehearse)
     phase_build(rehearse)
+    if args.only == "mesh_train":
+        phase_mesh_train(model_cfg, dev, rehearse)
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": _device_record(rehearse)})
+        return 0
     if args.only == "mesh":
         try:
             ckpt = phase_pretrained(model_cfg, dev, rehearse) if mesh_shapes(
@@ -3814,6 +4138,7 @@ def main(argv=None) -> int:
         heads_counts = phase_serve_heads(model_cfg, dev, rehearse, ckpt)
         cli_counts = phase_cli(model_cfg, dev, rehearse, ckpt)
         mesh_counts = phase_mesh(model_cfg, dev, rehearse, ckpt)
+        mesh_train_counts = phase_mesh_train(model_cfg, dev, rehearse)
         driver_counts, driver_t2i_counts = phase_driver(model_cfg, dev, rehearse, ckpt)
         latent_counts = phase_latent(model_cfg, dev, rehearse, ckpt)
     finally:
@@ -3831,7 +4156,7 @@ def main(argv=None) -> int:
             "pipeline": counts, "pipeline_pallas": fused_counts, "pipeline_int8": int8_counts,
             "scan": scan_counts,
             "serve": serve_counts, "serve_heads": heads_counts, "cli": cli_counts, "mesh": mesh_counts,
-            "driver": driver_counts,
+            "mesh_train": mesh_train_counts, "driver": driver_counts,
             "driver_t2i": driver_t2i_counts, "latent": latent_counts, "train": train_counts,
             "train_pallas": fused_train_counts, "layouts": layout_counts,
             "unet_forced_temporal": forced_counts, "int8_tool": tool_counts})

@@ -238,10 +238,14 @@ class PipelineConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class MeshConfig(_ConfigBase):
-    """Device mesh layout of the JAX package (axis sizes, -1 = the rest).
-    Serving takes any layout (``parallel.mesh.create_mesh``, ``--mesh``);
-    training over a mesh is not ported, so ``TrainConfig`` accepts only the
-    default."""
+    """Device mesh layout of the JAX package (axis sizes, -1 = the rest),
+    one rank per card.  Serving takes any layout (``--mesh``, fsdp 1);
+    training takes any layout too (``TrainConfig.mesh``, the driver's
+    ``--data_fsdp`` / ``--seq_parallel``): the batch's clips split over
+    ``data`` x ``fsdp``, their frames over ``seq``, the state ZeRO-placed
+    over ``fsdp`` (``parallel.zero``).  ``create_mesh`` checks the sizes
+    against the ranks, as the JAX ``create_mesh`` checks them against the
+    devices."""
 
     data: int = -1
     fsdp: int = 1
@@ -320,10 +324,6 @@ class TrainConfig(_ConfigBase):
         total = self.uncond_prob_t + self.uncond_prob_i + self.uncond_prob_ti
         if total > 1.0:
             raise ValueError(f"uncond probabilities sum to {total} > 1")
-        if self.mesh != MeshConfig():
-            raise NotImplementedError(
-                f"not ported yet: mesh={self.mesh} (ROADMAP: multi-GPU training)"
-            )
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,10 @@ handed out through a bounded queue.  The order is reshuffled each epoch
 with ``np.random.default_rng(seed + epoch)``.  Batches stay numpy; the
 training driver moves them to the card.
 
+``rows=(lo, hi)`` decodes only those rows of each batch (the rows of one
+``(data, fsdp)`` block of a mesh, ``parallel.mesh.batch_rows``); every
+rank keeps the one order of batches.
+
 One deviation: the JAX loader's threads decode the whole epoch as fast as
 they can, holding every batch the consumer has not taken yet (a WebVid
 epoch would not fit in host memory); here at most ``prefetch +
@@ -46,6 +50,7 @@ class DataLoader:
         drop_last: bool = True,
         seed: int = 0,
         prefetch: int = 2,
+        rows=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,6 +60,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.rows = rows
         self._epoch = 0
 
     def __len__(self):
@@ -62,6 +68,23 @@ class DataLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def _load(self, idxs) -> list:
+        """The items of one batch's indices: all of them, or with ``rows``
+        only those rows, the others passed over (``dataset.skip`` draws the
+        random numbers their decode would).  With one worker each row is
+        then what a loader of every row gives it; with several the draws
+        follow the threads' order, as a loader of every row's do."""
+        if self.rows is None:
+            return [self.dataset[int(i)] for i in idxs]
+        lo, hi = self.rows
+        items = []
+        for j, i in enumerate(idxs):
+            if lo <= j < hi:
+                items.append(self.dataset[int(i)])
+            elif hasattr(self.dataset, "skip"):
+                self.dataset.skip(int(i))
+        return items
 
     def __iter__(self) -> Iterator[dict]:
         n = len(self.dataset)
@@ -95,7 +118,7 @@ class DataLoader:
                     bi, idxs = idx_q.get_nowait()
                 except queue.Empty:
                     return
-                batch = self.collate_fn([self.dataset[int(i)] for i in idxs])
+                batch = self.collate_fn(self._load(idxs))
                 with results_lock:
                     results[bi] = batch
 

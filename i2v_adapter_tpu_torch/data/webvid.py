@@ -119,7 +119,8 @@ class WebVidDataset:
     def __len__(self) -> int:
         return len(self.rows)
 
-    def _get_clip(self, idx: int):
+    def _sample(self, idx: int):
+        """The video's path and the frame indices drawn for row ``idx``."""
         row = self.rows[idx]
         path = os.path.join(self.video_folder, row["page_dir"], f"{row['videoid']}.mp4")
         n = video_length(path)
@@ -131,7 +132,22 @@ class WebVidDataset:
             clip_len = min(n, (self.sample_n_frames - 1) * self.sample_stride + 1)
             start = self.rng.randint(0, n - clip_len)
             indices = np.linspace(start, start + clip_len - 1, self.sample_n_frames).astype(int)
-        return _read_video_frames(path, indices), row["name"]
+        return path, indices
+
+    def _get_clip(self, idx: int):
+        path, indices = self._sample(idx)
+        return _read_video_frames(path, indices), self.rows[idx]["name"]
+
+    def skip(self, idx: int) -> None:
+        """Draw the random numbers ``self[idx]`` draws (its frames and its
+        flip) without decoding: another rank decodes the row.  A row whose
+        video cannot be read draws as far as the failure, as ``self[idx]``'s
+        first attempt does."""
+        try:
+            self._sample(idx)
+        except Exception:  # noqa: BLE001 - the decoding rank resamples it
+            return
+        self.rng.random()
 
     def __getitem__(self, idx: int) -> dict:
         while True:

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.models.layers import ConvNHWC, GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import dot_product_attention
+from i2v_adapter_tpu_torch.parallel.collectives import copy_to_parallel
 from i2v_adapter_tpu_torch.parallel.spmd import (
     current_attention_spmd,
     first_frame_constraint,
@@ -73,6 +74,9 @@ class Attention(nn.Module):
         return out.view(q.shape)
 
     def forward(self, hidden_states, encoder_hidden_states=None, kv_repeat: int = 1):
+        if encoder_hidden_states is not None:
+            encoder_hidden_states = copy_to_parallel(encoder_hidden_states, self.tp_group)
+        hidden_states = copy_to_parallel(hidden_states, self.tp_group)
         ctx = hidden_states if encoder_hidden_states is None else encoder_hidden_states
         if self.ip_num_tokens > 0:
             n_text = ctx.shape[1] - self.ip_num_tokens

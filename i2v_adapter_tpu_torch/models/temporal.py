@@ -20,6 +20,7 @@ import torch.nn as nn
 from i2v_adapter_tpu_torch.models.attention import FeedForward
 from i2v_adapter_tpu_torch.models.layers import GroupNorm, LayerNorm, Linear
 from i2v_adapter_tpu_torch.ops.attention import temporal_attention
+from i2v_adapter_tpu_torch.parallel.collectives import copy_to_parallel
 from i2v_adapter_tpu_torch.parallel.spmd import (
     current_attention_spmd,
     motion_group_norm,
@@ -61,6 +62,7 @@ class TemporalSelfAttention(nn.Module):
         def call(q, k, v, heads):
             return temporal_attention(q, k, v, heads=heads, impl=self.attn_impl)
 
+        x = copy_to_parallel(x, self.tp_group)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         ctx = current_attention_spmd()
         out = call(q, k, v, self.heads) if ctx is None else spmd_temporal_attention(call, q, k, v, self.heads, ctx)

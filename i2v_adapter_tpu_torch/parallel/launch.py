@@ -7,7 +7,8 @@ start method), each joining one group (NCCL on the cards, gloo with
 raises, dies or outlives ``timeout`` ends the run: the others are
 terminated and ``RuntimeError`` carries the rank's traceback, so no rank is
 left waiting in a collective.  ``run_meshed`` is the ``--mesh`` entry of the
-CLI and the daemon: under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) this
+CLI and the daemon (the training driver spawns its ranks the same way):
+under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` set) this
 process joins the group and runs its rank; run alone it spawns one rank per
 card of the mesh.  ``fn`` and its arguments are pickled by reference, so
 ``fn`` lives in a module the ranks can import.
@@ -94,9 +95,10 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (), device: DeviceLike 
 
 
 def run_meshed(fn: Callable, config: MeshConfig, device: DeviceLike = None, args: Sequence = ()):
-    """Run ``fn(*args)`` on every rank of a ``config`` mesh (fsdp 1) and
-    return rank 0's result: this process's rank under ``torchrun``, else one
-    spawned rank per card (per CPU process with ``device="cpu"``).  Raises
+    """Run ``fn(*args)`` on every rank of a ``config`` mesh (any axis sizes,
+    fsdp included) and return rank 0's result: this process's rank under
+    ``torchrun``, else one spawned rank per card (per CPU process with
+    ``device="cpu"``).  Raises
     ``ValueError`` when the mesh wants more cards than the host has, or
     when ``torchrun``'s world is not the mesh's size."""
     from i2v_adapter_tpu_torch.parallel.mesh import init_distributed

@@ -1,4 +1,4 @@
-"""The UNet's sites over the serving mesh (the JAX package's
+"""The UNet's sites over the serving and training mesh (the JAX package's
 ``parallel/spmd.py``).
 
 In the JAX package GSPMD partitions the sampler and ``shard_map`` runs the
@@ -10,6 +10,8 @@ its own slab of one evaluation, and the modules consult the active
   frame-minor: its clips split over ``data`` (``clip_split``) and each
   clip's frames over ``seq`` (``frame_split``), each only where it divides
   (the pipeline decides per evaluation, as the JAX ``shard_evals`` does);
+  in training the clips split over ``data`` x ``fsdp`` (``clip_axes``, as
+  the JAX train step's ``attention_spmd(mesh, clip_axis=(data, fsdp))``);
 * spatial attention, the resnets and their convs (K4 included) are
   frame-local: the kernels run on the slab as it is, with the weights
   replicated, so they need no wrapper here;
@@ -25,12 +27,20 @@ its own slab of one evaluation, and the modules consult the active
   with K/V gathered over ``seq`` (``spmd_temporal_attention``);
 * under ``tensor`` the attention projections are sliced in place
   (``shard_tensor_parallel``, from ``tp_param_shardings``' rules): q/k/v
-  by column, so each rank runs its heads, and ``to_out`` by row, its
-  partial sums all-reduced over ``tensor`` before the bias
+  by column, so each rank runs its heads, their input's gradient
+  all-reduced over ``tensor`` (``collectives.copy_to_parallel``), and ``to_out`` by
+  row, its partial sums all-reduced over ``tensor`` before the bias
   (``row_parallel_out``);
 * an int8 conv's per-tensor activation scale is all-reduced (MAX) over the
   evaluation's shards (``shared_activation_scale``), so each rank quantises
   with the scale of the whole tensor, as one card does.
+
+Every collective here goes through ``parallel.collectives``, whose calls
+carry their adjoints when a gradient flows (the train step): the kernels
+still run on the rank's slab, K1 with the local ``kv_repeat`` and K3's
+backward summing that repeat's fan-in, the rest of the fan-in summed by the
+first-frame broadcast's adjoint; K2 token-sharded (its backward is the
+plain version recomputed); K4 frame-local.
 
 The JAX package drops to XLA attention where its ``shard_map`` layouts do
 not fit (several clips per shard with frames split); the port's slabs are
@@ -64,15 +74,16 @@ class AttentionSpmd:
     inside a motion module, whether its tokens or its frames are split."""
 
     mesh: Mesh
-    clip_split: bool = True  # clips over ``data``
+    clip_split: bool = True  # clips over ``clip_axes``
     frame_split: bool = True  # frames over ``seq``
+    clip_axes: Tuple[str, ...] = (DATA_AXIS,)  # training: (data, fsdp)
     frames: int = 1  # the evaluation's frames per clip, all ranks together
     layout: str = "frames"  # inside a motion module: "frames" or "tokens"
 
     @property
     def eval_axes(self) -> Tuple[str, ...]:
         """The axes dim 0 is split over (those of size 1 left out)."""
-        axes = ((DATA_AXIS,) if self.clip_split else ()) + ((SEQ_AXIS,) if self.frame_split else ())
+        axes = (self.clip_axes if self.clip_split else ()) + ((SEQ_AXIS,) if self.frame_split else ())
         return tuple(a for a in axes if self.mesh.size(a) > 1)
 
     @property
@@ -210,16 +221,18 @@ def shared_activation_scale(xs: torch.Tensor) -> torch.Tensor:
     ctx = current_attention_spmd()
     if ctx is None or not ctx.eval_axes:
         return xs
-    return collectives.all_reduce(xs.reshape(1).clone(), "max", ctx.mesh.group(ctx.eval_axes)).reshape(())
+    return collectives.all_reduce(xs.reshape(1), "max", ctx.mesh.group(ctx.eval_axes)).reshape(())
 
 
 def row_parallel_out(linear: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
     """``linear(x)`` for a ``to_out`` whose input features are split over
-    ``tensor``: the partial product all-reduced (SUM), then the bias once."""
+    ``tensor``: the partial product all-reduced (SUM; the gradient passes
+    through), then the bias once."""
     if group is None:
         return linear(x)
-    y = collectives.all_reduce(F.linear(x, linear.weight.to(x.dtype)), "sum", group)
+    y = collectives.reduce_from_parallel(F.linear(x, linear.weight.to(x.dtype)), group)
     return y if linear.bias is None else y + linear.bias.to(y.dtype)
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The collectives of one meshed denoise step, counted and timed (the JAX
-package's ``tools/audit_multichip.py --case infer``).
+"""The collectives of one meshed denoise step or train step, counted and
+timed (the JAX package's ``tools/audit_multichip.py``).
 
 The JAX tool compiles the sharded step and parses its HLO; the port's
 collectives are its own calls, so this runs one denoise step of the serving
@@ -17,7 +17,25 @@ config beside them, one decode's collectives, and each rank's peak memory.
 
 (the first on data x tensor x seq cards, SD1.5 at 512 px and 16 frames,
 seeded random weights; the second on gloo ranks at the tiny config).
-``--case train`` waits for training over a mesh.
+
+A train case (``--case train_dp`` ... ``train_motion_512``, ``TRAIN_CASES``:
+the JAX audit's train meshes that fit four cards) audits one train step of
+config 4 (256 px, 16 frames, 2 clips per ``data`` x ``fsdp`` way, bf16,
+activation checkpointing, AdamW; the 512 px motion finetune at 1 clip a
+way with the motion modules trained), the state placed over the case's
+mesh (``--mesh data,fsdp,tensor,seq`` puts it on another): one recorded
+step after a warm-up one, its collectives forward, recompute and
+backward, ZeRO's gathers and reduce-scatters and the sums, each timed
+alone on the cards and held to
+``parallel.audit.collectives_per_train_step``; each rank's peak memory and
+the step's ms.
+
+    --case train_dp                 (4,1,1,1)
+    --case train_dp_fsdp            (2,2,1,1)
+    --case train_dp_fsdp_frozrep    (2,2,1,1), fsdp_frozen='replicate'
+    --case train_dp_seq             (2,1,1,2)
+    --case train_tp                 (2,1,2,1)
+    --case train_motion_512         (1,2,1,2), 512 px, 1 clip a way, motion
 """
 
 from __future__ import annotations
@@ -28,11 +46,25 @@ import sys
 import time
 
 
+# the train cases: (data, fsdp, tensor, seq), fsdp_frozen, px, clips per
+# data x fsdp way, motion modules trained
+TRAIN_CASES = {
+    "train_dp": ((4, 1, 1, 1), "shard", 256, 2, False),
+    "train_dp_fsdp": ((2, 2, 1, 1), "shard", 256, 2, False),
+    "train_dp_fsdp_frozrep": ((2, 2, 1, 1), "replicate", 256, 2, False),
+    "train_dp_seq": ((2, 1, 1, 2), "shard", 256, 2, False),
+    "train_tp": ((2, 1, 2, 1), "shard", 256, 2, False),
+    "train_motion_512": ((1, 2, 1, 2), "shard", 512, 1, True),
+}
+
+
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="collective audit of one meshed denoise step")
-    p.add_argument("--case", choices=("infer", "train"), default="infer")
-    p.add_argument("--mesh", type=str, default="2,1,2", help="data,tensor,seq")
-    p.add_argument("--size", type=int, default=512)
+    p = argparse.ArgumentParser(description="collective audit of one meshed denoise step or train step")
+    p.add_argument("--case", choices=("infer",) + tuple(TRAIN_CASES), default="infer")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="infer: data,tensor,seq (default 2,1,2); a train case: data,fsdp,tensor,seq "
+                        "(default the case's)")
+    p.add_argument("--size", type=int, default=None, help="default 512 (infer), the case's (train)")
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--tiny", action="store_true", help="the tiny test config (CPU runs)")
     p.add_argument("--device", type=str, default=None, help="'cpu' runs gloo ranks on the CPU")
@@ -104,13 +136,135 @@ def _audit_rank(args, mesh_config) -> dict:
     return record
 
 
-def main(argv=None) -> dict:
+def train_configs(case: str, mesh_config, tiny: bool, size=None, frames: int = 16):
+    """A train case's model and train configs over ``mesh_config`` (config
+    4; the tiny config at 32 px and 4 frames in fp32 for CPU runs)."""
+    from i2v_adapter_tpu_torch.config import I2VModelConfig, reference_train_config, tiny_test_config
+
+    _, frozen, px, clips, motion = TRAIN_CASES[case]
+    tc = reference_train_config().replace(train_batch_size=clips * mesh_config.data * mesh_config.fsdp,
+                                          mesh=mesh_config, update_motion_modules=motion, fsdp_frozen=frozen,
+                                          uncond_prob_t=0.1, uncond_prob_i=0.1)
+    if tiny:
+        return tiny_test_config(), tc.replace(resolution=32, num_frames=4, mixed_precision="none",
+                                              freeze_dtype="float32")
+    return I2VModelConfig(), tc.replace(resolution=size or px, num_frames=frames)
+
+
+def audit_train_step(state, step_fn, batch: dict, mesh, model_cfg, tc, warm_up: bool = True) -> dict:
+    """One recorded train step of ``step_fn`` on this rank's ``batch``
+    (after an unrecorded one with ``warm_up``): its collectives' summary,
+    the top calls, the formula's counts and the recorded step's ms."""
+    import torch
+
+    from i2v_adapter_tpu_torch.parallel import audit, collectives
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if warm_up:
+        state, _ = step_fn(state, batch)  # plans, communicators
+    if cuda:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with collectives.recording() as ops:
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if cuda:
+        audit.time_collectives(ops, dev)
+    lat = tc.resolution // model_cfg.vae.spatial_scale_factor
+    expected = audit.collectives_per_train_step(model_cfg.unet, mesh.shape, tc, tc.train_batch_size, tc.num_frames,
+                                                lat, state.zero.counts(state))
+    return {"summary": audit.summarize(ops), "expected": expected, "top_ops": audit.top_ops(ops),
+            "step_ms": step_ms, "loss": loss}
+
+
+def _audit_train_rank(args, mesh_config, min_size: int) -> dict:
+    import torch
+
+    from i2v_adapter_tpu_torch.parallel.mesh import create_mesh, local_batch, train_state_shardings
+    from i2v_adapter_tpu_torch.training import make_train_step
+    from i2v_adapter_tpu_torch.training.checkpoint import train_state_tensors
+    from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
+
+    mesh = create_mesh(mesh_config, device=args.device)
+    model_cfg, tc = train_configs(args.case, mesh_config, args.tiny, args.size, args.frames)
+    cuda = mesh.device.type == "cuda"
+    specs = None
+    if min_size != 2**16:  # the state's specs at another fsdp threshold
+        whole = random_train_state(model_cfg, tc, mesh.device, seed=args.seed + 1)
+        specs = train_state_shardings(whole, mesh, min_size, tc.fsdp_frozen == "replicate")
+        del whole
+    state = random_train_state(model_cfg, tc, mesh.device, seed=args.seed + 1, mesh=mesh, shardings=specs)
+    batch = local_batch(random_train_batch(model_cfg, tc, mesh.device, seed=args.seed), mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    record = audit_train_step(state, make_train_step(model_cfg, tc, mesh=mesh), batch, mesh, model_cfg, tc)
+    record["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device) if cuda else None
+    record["state_bytes"] = int(sum(t.numel() * t.element_size() for t in train_state_tensors(state).values()))
+    return record
+
+
+def parse_train_mesh(text: str):
+    """``data,fsdp,tensor,seq`` (four positive integers) -> MeshConfig."""
+    from i2v_adapter_tpu_torch.config import MeshConfig
+
+    parts = text.split(",")
+    try:
+        sizes = [int(p) for p in parts]
+    except ValueError:
+        sizes = []
+    if len(sizes) != 4 or min(sizes) < 1:
+        raise ValueError(f"a train case's --mesh takes 'data,fsdp,tensor,seq', four positive integers; got {text!r}")
+    return MeshConfig(*sizes)
+
+
+def main_train(args, min_size: int = 2**16) -> dict:
+    from i2v_adapter_tpu_torch.config import MeshConfig
+    from i2v_adapter_tpu_torch.parallel.launch import run_ranks
+
+    config = parse_train_mesh(args.mesh) if args.mesh else MeshConfig(*TRAIN_CASES[args.case][0])
+    n = config.data * config.fsdp * config.tensor * config.seq
+    ranks = run_ranks(_audit_train_rank, n, (args, config, min_size), args.device)
+    rec = ranks[0]
+    model_cfg, tc = train_configs(args.case, config, args.tiny, args.size, args.frames)
+    return {
+        "devices": n, "tiny": args.tiny, "platform": "cpu" if args.device == "cpu" else "gpu",
+        "cases": {args.case: {
+            "meta": {"mesh": config.to_dict(), "fsdp_frozen": tc.fsdp_frozen, "min_size": min_size,
+                     "workload": f"{tc.resolution}px {tc.num_frames}f global batch {tc.train_batch_size} train "
+                                 f"step ({'adapter + motion' if tc.update_motion_modules else 'adapter'}), "
+                                 f"{tc.mixed_precision}, remat, AdamW"},
+            "summary": rec["summary"],
+            "expected_counts": rec["expected"],
+            "counts_match": {k: v["count"] for k, v in rec["summary"]["by_kind"].items()} == rec["expected"],
+            "wire_gb_per_device": rec["summary"]["wire_bytes_per_device"] / 1e9,
+            "step_ms_per_rank": [r["step_ms"] for r in ranks],
+            "loss": rec["loss"],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+            "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+            "top_ops": rec["top_ops"],
+        }},
+    }
+
+
+def main(argv=None, min_size: int = 2**16) -> dict:
+    """The audit of ``argv``'s case; ``min_size`` (from code) lowers a train
+    case's fsdp sharding threshold, as a tiny state needs to shard."""
     from i2v_adapter_tpu_torch.parallel.launch import run_ranks
     from i2v_adapter_tpu_torch.parallel.mesh import parse_mesh
 
     args = parse_args(argv)
-    if args.case == "train":
-        raise NotImplementedError("--case train: training over a mesh is not ported yet (ROADMAP: PR 14)")
+    if args.case in TRAIN_CASES:
+        out = main_train(args, min_size)
+        text = json.dumps(out, indent=1)
+        print(text)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(text)
+        return out
+    args.mesh, args.size = args.mesh or "2,1,2", args.size or 512
     config = parse_mesh(args.mesh)
     n = config.data * config.tensor * config.seq
     ranks = run_ranks(_audit_rank, n, (args, config), args.device)

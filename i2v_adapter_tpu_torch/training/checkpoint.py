@@ -153,40 +153,54 @@ FORMAT = "i2v_adapter_tpu_torch.train_state/1"
 _COUNTERS = ("step", "opt_state/count", "opt_state/mini_step", "opt_state/gradient_step")
 
 
-def train_state_tensors(state) -> Tensors:
-    """Every tensor of a ``TrainState`` under its Flax-tree name, as views
-    of the live tensors (writing into one writes into the state): the
-    trainable and frozen UNet parameters, the optimizer's statistics (the
-    Adafactor ones are already in the Flax layout), the MultiSteps
-    accumulator, the EMA and the frozen towers."""
+def state_entries(state):
+    """Every tensor slot of a ``TrainState``: ``(name, slots, key, perm,
+    param)`` with ``slots[key]`` the tensor (a module's ``_parameters`` for
+    a parameter, else the optimizer's or the EMA's dict), ``name`` its
+    Flax-tree name, ``perm`` the permutation that gives its Flax layout
+    (None when it is in that layout) and ``param`` the dotted name of the
+    parameter it belongs to (in the UNet or its tower): the trainable and
+    frozen UNet parameters, the optimizer's statistics (the Adafactor ones
+    already in the Flax layout), the MultiSteps accumulator, the EMA and
+    the frozen towers, in that order."""
     unet_modules = dict(state.unet.named_modules())
-    named = dict(state.unet.named_parameters())
-    out: Tensors = {}
 
-    def put(prefix, modules, name, t, permute=True):
-        path, perm = flax_leaf(modules, name)
-        t = t.detach()
-        out["/".join([prefix] + path)] = t.permute(perm) if permute and perm is not None else t
+    def param(prefix, modules, n):
+        owner, _, attr = n.rpartition(".")
+        path, perm = flax_leaf(modules, n)
+        return "/".join([prefix] + path), modules[owner]._parameters, attr, perm, n
 
     for n in state.trainable:
-        put("trainable", unet_modules, n, named[n])
+        yield param("trainable", unet_modules, n)
     for n in state.frozen:
-        put("frozen", unet_modules, n, named[n])
+        yield param("frozen", unet_modules, n)
     os_ = state.opt_state
-    for key in ("mu", "nu", "acc"):
-        for n, t in getattr(os_, key).items():
-            put(f"opt_state/{key}", unet_modules, n, t)
-    for key in ("v_row", "v_col", "v"):
-        for n, t in getattr(os_, key).items():
-            put(f"opt_state/{key}", unet_modules, n, t, permute=False)
-    for n, t in (state.ema or {}).items():
-        put("ema", unet_modules, n, t)
+    for key in ("mu", "nu", "acc", "v_row", "v_col", "v"):
+        slots = getattr(os_, key)
+        for n in slots:
+            path, perm = flax_leaf(unet_modules, n)
+            yield ("/".join([f"opt_state/{key}"] + path), slots, n,
+                   perm if key in ("mu", "nu", "acc") else None, n)
+    for n in (state.ema or {}):
+        path, perm = flax_leaf(unet_modules, n)
+        yield "/".join(["ema"] + path), state.ema, n, perm, n
     for tower in ("vae", "text_encoder", "image_encoder"):
         module = getattr(state, tower)
         if module is not None:
             modules = dict(module.named_modules())
-            for n, p in module.named_parameters():
-                put(tower, modules, n, p)
+            for n, _ in module.named_parameters():
+                yield param(tower, modules, n)
+
+
+def train_state_tensors(state) -> Tensors:
+    """Every tensor of a ``TrainState`` under its Flax-tree name
+    (``state_entries``), as views of the live tensors in the Flax layout
+    (writing into one writes into the state).  Over a mesh these are this
+    rank's blocks (``parallel.zero``)."""
+    out: Tensors = {}
+    for name, slots, key, perm, _ in state_entries(state):
+        t = slots[key].detach()
+        out[name] = t.permute(perm) if perm is not None else t
     return out
 
 
@@ -204,7 +218,13 @@ class TrainCheckpointer:
     copied to host memory, and the file is written on a background thread
     (a second ``save`` first waits for the one in flight); ``wait()``
     blocks until it is on disk.  ``restore`` fills a state of the same
-    structure in place, bit for bit."""
+    structure in place, bit for bit.
+
+    A state placed over a mesh (``state.zero``) is gathered by every rank
+    (each must call ``save``), and rank 0 writes the file one card writes;
+    ``restore`` on any mesh takes each rank's blocks of the whole tensors
+    in the file, so one card restores a meshed run's file and the other
+    way round."""
 
     def __init__(self, directory: str, max_to_keep: Optional[int] = None, async_save: bool = False):
         self.directory = os.path.abspath(directory)
@@ -238,7 +258,13 @@ class TrainCheckpointer:
         self.wait()
         t0 = time.perf_counter()
         tensors = {k: torch.tensor(v, dtype=torch.int64) for k, v in _counters(state).items()}
-        live = train_state_tensors(state)
+        zero = getattr(state, "zero", None)
+        if zero is None:
+            live = train_state_tensors(state)
+        else:  # every rank gathers, rank 0 writes what one card would
+            live = zero.full_tensors(state)
+            if zero.mesh.rank != 0:
+                return
         metadata = {"format": FORMAT, "optimizer": state.optimizer.kind}
         if self.async_save:
             tensors.update({k: v.to("cpu", copy=True) for k, v in live.items()})
@@ -289,12 +315,17 @@ class TrainCheckpointer:
         if set(arrays) != want:
             raise KeyError(f"train state mismatch at step {step}: missing {sorted(want - set(arrays))[:8]} "
                            f"extra {sorted(set(arrays) - want)[:8]}")
+        zero = getattr(state, "zero", None)
         for key, target in live.items():
-            if tuple(arrays[key].shape) != tuple(target.shape):
-                raise ValueError(f"{key}: {tuple(arrays[key].shape)} in the file, {tuple(target.shape)} here")
+            shape = tuple(target.shape) if zero is None else zero.full_flax_shape(key, target)
+            if tuple(arrays[key].shape) != shape:
+                raise ValueError(f"{key}: {tuple(arrays[key].shape)} in the file, {shape} here")
         with torch.no_grad():
             for key, target in live.items():
-                target.copy_(torch.from_numpy(arrays[key]))
+                whole = torch.from_numpy(arrays[key])
+                if zero is not None and key in zero.dims:  # this rank's block of what one card wrote
+                    whole = zero.block(whole, *zero.spec_axis(zero.specs[key]))
+                target.copy_(whole)
         counters = {k: int(arrays[k]) for k in _COUNTERS}
         state.step = counters["step"]
         state.opt_state.count = counters["opt_state/count"]

@@ -1,4 +1,4 @@
-"""Training driver: command line and epoch loop, on one GPU.
+"""Training driver: command line and epoch loop, on one GPU or a mesh of them.
 
 The port's counterpart of the JAX package's ``training/driver.py``: build
 the WebVid dataset and its loader, load a diffusers-layout checkpoint
@@ -13,9 +13,21 @@ Run: ``python -m i2v_adapter_tpu_torch.training.driver --task_name X
 --pretrained_model_path ... --csv_path ... --video_folder ... [--device cpu]``
 
 The flags are the JAX driver's, plus ``--device`` (default: the current
-CUDA device).  Multi-device training (``--data_fsdp``, ``--seq_parallel``)
-and the scaling bench (``--bench_scaling``) are not ported and raise
-``NotImplementedError``.  The train step runs the UNet with exact convs;
+CUDA device).  As the JAX driver meshes over every device, the port trains
+over one rank per card: ``torchrun``'s world when it started this process,
+else one spawned process per visible card (``main(..., ranks=N)`` spawns N
+gloo ranks on the CPU), on the mesh ``(data=-1, fsdp=--data_fsdp,
+seq=--seq_parallel)`` with the state placed by ``--fsdp_frozen``.  A batch
+or frame count that does not split over the mesh raises ``ValueError``
+before the first step (the JAX driver falls back to one device; here every
+rank is a process, which would then train alone).  The ranks of one
+``(data, fsdp)`` block train on the same clips: the block's first rank
+decodes its rows of the batch one process would load and sends them to
+the others (``block_batches``).  Full-state saves, adapter
+checkpoints, validation samples and the export are gathered by every rank
+and written by rank 0 (the others wait for its validation).
+``--bench_scaling`` times the meshed step across mesh shapes
+(``bench_scaling``).  The train step runs the UNet with exact convs;
 the pipeline's int8 serving convs are switched on only around validation
 samples, which are made from the trained (EMA) weights.  Each step's
 random numbers come from ``make_train_step``'s generator, seeded with
@@ -26,6 +38,7 @@ would have.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -45,6 +58,14 @@ from i2v_adapter_tpu_torch.config import (
 from i2v_adapter_tpu_torch.data.loader import DataLoader
 from i2v_adapter_tpu_torch.data.webvid import WebVidDataset
 from i2v_adapter_tpu_torch.device import resolve_device
+from i2v_adapter_tpu_torch.parallel.mesh import (
+    BLOCK_AXES,
+    CLIP_AXES,
+    SEQ_AXIS,
+    batch_rows,
+    create_mesh,
+    frame_range,
+)
 from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.training import checkpoint as ckpt
 from i2v_adapter_tpu_torch.training.state import create_train_state
@@ -123,9 +144,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--data_fsdp", type=int, default=1,
-                   help="fsdp axis size of the mesh (not ported: > 1 raises)")
+                   help="fsdp axis size of the mesh (ZeRO-style state sharding); "
+                        "data = remaining devices")
     p.add_argument("--seq_parallel", type=int, default=1,
-                   help="seq axis size (not ported: > 1 raises)")
+                   help="seq axis size (frames of each clip split over it)")
     p.add_argument("--fsdp_frozen", type=str, default="shard", choices=["shard", "replicate"],
                    help="placement of the no-gradient state on the fsdp axis "
                         "(no effect on one device)")
@@ -139,7 +161,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "activates only if its package imports")
     p.add_argument("--wandb_project", type=str, default="i2v_adapter_tpu")
     p.add_argument("--bench_scaling", action="store_true",
-                   help="the JAX package's weak-scaling bench (not ported: raises)")
+                   help="weak-scaling bench of the meshed train step across --bench_mesh_shapes "
+                        "(data,fsdp,seq;...), one JSONL record per shape")
     p.add_argument("--bench_mesh_shapes", type=str, default="1,1,1;2,1,1;4,1,1;2,2,1;4,2,1;2,2,2")
     p.add_argument("--bench_steps", type=int, default=4)
     p.add_argument("--bench_model", type=str, default="sd15", choices=["sd15", "tiny"])
@@ -154,14 +177,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if missing:
             p.error(f"the following arguments are required: {', '.join('--' + m for m in missing)}")
     return args
-
-
-def refuse_multi_gpu(args) -> None:
-    """Raise for the JAX driver's multi-device options."""
-    for flag, on in (("--data_fsdp", args.data_fsdp > 1), ("--seq_parallel", args.seq_parallel > 1),
-                     ("--bench_scaling", args.bench_scaling)):
-        if on:
-            raise NotImplementedError(f"{flag}: multi-GPU training is not ported yet (ROADMAP: multi-GPU)")
 
 
 def args_to_train_config(args) -> TrainConfig:
@@ -208,16 +223,26 @@ def args_to_train_config(args) -> TrainConfig:
     )
 
 
-def setup(args, model_config: Optional[I2VModelConfig] = None) -> dict:
+def check_mesh_divides(tc: TrainConfig, mesh) -> None:
+    """Refuse a batch or a frame count that does not split over ``mesh``
+    (``ValueError``), before anything is built."""
+    ways, seq = mesh.size(CLIP_AXES), mesh.size(SEQ_AXIS)
+    if tc.train_batch_size % ways or (tc.train_mode == "i2v" and tc.num_frames % seq):
+        raise ValueError(f"batch {tc.train_batch_size} / frames {tc.num_frames} do not split over the mesh "
+                         f"(data x fsdp = {ways}, seq = {seq}); the JAX driver would fall back to one device")
+
+
+def setup(args, model_config: Optional[I2VModelConfig] = None, mesh=None) -> dict:
     """Everything ``train`` builds before its first step: ``train_config``,
     ``model_config`` (after the t2i surgery, with exact convs), ``device``,
     ``dataset``, ``loader``, ``steps_per_epoch``, ``total_steps``, ``pipe``
     (the pipeline, its modules shared with the state), ``state`` (adapters
-    resumed from the newest epoch checkpoint when there is one),
-    ``first_epoch`` and ``task_dir``."""
-    refuse_multi_gpu(args)
-    dev = resolve_device(getattr(args, "device", None))
+    resumed from the newest epoch checkpoint when there is one; placed over
+    ``mesh`` when given), ``first_epoch`` and ``task_dir``."""
+    dev = mesh.device if mesh is not None else resolve_device(getattr(args, "device", None))
     tc = args_to_train_config(args)
+    if mesh is not None:
+        check_mesh_divides(tc, mesh)
     model_config = model_config or I2VModelConfig()
     if tc.train_mode == "t2i":
         # base finetune: the plain per-frame SD UNet, no adapter / motion / IP
@@ -228,8 +253,9 @@ def setup(args, model_config: Optional[I2VModelConfig] = None) -> dict:
         args.csv_path, args.video_folder, sample_size=tc.resolution, sample_stride=tc.sample_stride,
         sample_n_frames=tc.num_frames, is_image=tc.train_mode == "t2i",
         clip_image_size=model_config.image_encoder.image_size, seed=tc.seed)
+    # over a mesh every rank keeps one process's batches; its block decodes its rows
     loader = DataLoader(dataset, tc.train_batch_size, shuffle=True, num_workers=args.num_workers,
-                        seed=tc.seed)
+                        seed=tc.seed, rows=None if mesh is None else batch_rows(mesh, tc.train_batch_size))
     steps_per_epoch = max(len(loader), 1)
     total_steps = tc.max_train_steps or steps_per_epoch * tc.num_train_epochs
     if tc.optimizer.scale_lr:
@@ -258,11 +284,33 @@ def setup(args, model_config: Optional[I2VModelConfig] = None) -> dict:
         ckpt.load_adapter_checkpoint(pipe.unet, model_config.unet, resume_dir)
 
     state = create_train_state(pipe.unet, tc, total_steps, vae=pipe.vae, text_encoder=pipe.text_encoder,
-                               image_encoder=pipe.image_encoder)
+                               image_encoder=pipe.image_encoder, mesh=mesh)
     return {"train_config": tc, "model_config": model_config, "device": dev, "dataset": dataset,
             "loader": loader, "steps_per_epoch": steps_per_epoch, "total_steps": total_steps,
             "pipe": pipe, "state": state, "first_epoch": first_epoch, "task_dir": task_dir,
             "resume_full": resume_full}
+
+
+def block_batches(loader, mesh=None):
+    """One epoch of ``loader``'s batches.  Over a mesh whose blocks hold
+    several ranks, the block's first rank (``tensor`` and ``seq`` index 0)
+    decodes them and broadcasts each on the block's gloo group: the
+    dataset's random draws (clip windows, flips) depend on the order its
+    worker threads take them in, so ranks that each decoded would see
+    different windows of one clip."""
+    group = None if mesh is None else mesh.block_control
+    if group is None:
+        yield from loader
+        return
+    first = mesh.index(BLOCK_AXES) == 0
+    batches = iter(loader) if first else None
+    src = torch.distributed.get_global_rank(group, 0)
+    while True:
+        box = [next(batches, None) if first else None]
+        torch.distributed.broadcast_object_list(box, src=src, group=group)
+        if box[0] is None:
+            return
+        yield box[0]
 
 
 def _to_device(batch: dict, dev: torch.device) -> dict:
@@ -276,17 +324,20 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
-    """Run the training loop; returns ``global_step``, ``last_loss`` (the
-    last epoch's mean) and the per-step ``losses``, ``grad_norms``,
-    ``skipped_nonfinite``, ``step_s`` (synchronised), ``data_wait_s`` (the
-    host's wait for the loader) and ``state_saves`` (the full-state saves'
-    step, bytes and seconds)."""
+def train(args, model_config: Optional[I2VModelConfig] = None, mesh=None) -> dict:
+    """Run the training loop (over ``mesh`` when given: this rank's part);
+    returns ``global_step``, ``last_loss`` (the last epoch's mean) and the
+    per-step ``losses``, ``grad_norms``, ``skipped_nonfinite``, ``step_s``
+    (synchronised), ``data_wait_s`` (the host's wait for the loader) and
+    ``state_saves`` (the full-state saves' step, bytes and seconds; rank
+    0's)."""
     logging.basicConfig(level=logging.INFO)
-    s = setup(args, model_config)
+    s = setup(args, model_config, mesh)
     tc, model_config, dev = s["train_config"], s["model_config"], s["device"]
     pipe, state, loader, task_dir = s["pipe"], s["state"], s["loader"], s["task_dir"]
     steps_per_epoch, first_epoch = s["steps_per_epoch"], s["first_epoch"]
+    main_rank = mesh is None or mesh.rank == 0
+    frames = None if mesh is None or tc.train_mode == "t2i" else frame_range(mesh, tc.num_frames)
 
     step_ckpt = None
     if args.checkpointing_steps or s["resume_full"]:
@@ -298,10 +349,10 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
         if restored is not None:
             first_epoch = int(at_step) // max(steps_per_epoch, 1)
             logger.info("restored full train state at step %s", at_step)
-    step_fn = make_train_step(model_config, tc, device=dev)
+    step_fn = make_train_step(model_config, tc, device=dev, mesh=mesh)
 
     n_train = sum(p.numel() for p in state.trainable_params().values())
-    n_total = sum(p.numel() for p in state.unet.parameters())
+    n_total = sum(p.numel() for p in state.unet.parameters())  # this rank's blocks over a mesh
     logger.info("trainable params: %.2fM / %.2fM", n_train / 1e6, n_total / 1e6)
 
     uncond_ids = pipe.tokenizer([""] * tc.train_batch_size, padding="max_length")
@@ -312,9 +363,10 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
         use_wandb=report_to in ("wandb", "all"),
         wandb_project=getattr(args, "wandb_project", "i2v_adapter_tpu"),
         run_config=tc.to_dict(),
-    )
+    ) if main_rank else None
     timer = StepTimer(dev)
-    profiler = Profiler(os.path.join(task_dir, "profile"), 2, args.profile_steps) if args.profile_steps else None
+    profiler = (Profiler(os.path.join(task_dir, "profile"), 2, args.profile_steps)
+                if args.profile_steps and main_rank else None)
     global_step = int(first_epoch * steps_per_epoch)
     record = {k: [] for k in ("losses", "grad_norms", "skipped_nonfinite", "step_s", "data_wait_s")}
     epoch_loss, n_steps = 0.0, 0
@@ -325,7 +377,7 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
     try:
         for epoch in range(first_epoch, tc.num_train_epochs):
             epoch_loss, n_steps = 0.0, 0
-            batches = iter(loader)
+            batches = block_batches(loader, mesh)
             while True:
                 t0 = time.perf_counter()
                 batch = next(batches, None)
@@ -338,7 +390,7 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
                     # the reference's recipe, lengths bucketed to multiples of 8
                     text_ids = pipe.tokenizer(batch.pop("text"), padding="longest")
                     ctx = uncond_ids.shape[1]
-                    bucket = min(ctx, max(8, -(-text_ids.shape[1] // 8) * 8))
+                    bucket = min(ctx, max(8, -(-_longest(text_ids.shape[1], mesh) // 8) * 8))
                     if text_ids.shape[1] < bucket:
                         text_ids = np.pad(text_ids, ((0, 0), (0, bucket - text_ids.shape[1])),
                                           constant_values=pipe.tokenizer.eos)
@@ -346,7 +398,8 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
                 else:
                     text_ids = pipe.tokenizer(batch.pop("text"), padding="max_length")
                     u_ids = uncond_ids[: text_ids.shape[0]]
-                device_batch = _to_device({"pixel_values": batch["pixel_values"], "clip_image": batch["clip_image"],
+                pixels = batch["pixel_values"] if frames is None else batch["pixel_values"][:, frames[0]:frames[1]]
+                device_batch = _to_device({"pixel_values": pixels, "clip_image": batch["clip_image"],
                                            "text_ids": text_ids, "uncond_ids": u_ids}, dev)
                 with timer:
                     state, metrics = step_fn(state, device_batch)
@@ -359,7 +412,7 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
                 record["skipped_nonfinite"].append(float(metrics["skipped_nonfinite"]))
                 record["step_s"].append(timer.last)
                 record["data_wait_s"].append(wait)
-                if global_step % 10 == 0:
+                if global_step % 10 == 0 and metrics_log is not None:
                     metrics_log.log(global_step, {
                         "train_loss": loss,
                         "grad_norm": float(metrics["grad_norm"]),
@@ -375,22 +428,27 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
 
             if (epoch + 1) % tc.checkpoint_epoch == 0:
                 out = os.path.join(task_dir, f"epoch_{epoch + 1}")
-                # with --use_ema the checkpoint downstream consumers load is the
-                # EMA average; the live weights go to non_ema/
-                export = state.ema if tc.use_ema else None
-                if tc.train_mode == "t2i":
-                    ckpt.export_pipeline({"unet": ckpt.flax_tensors(state.unet, export, "params")},
-                                         model_config, out, tc)
-                else:
-                    ckpt.save_adapter_checkpoint(state.unet, model_config.unet, out,
-                                                 save_motion=tc.update_motion_modules, params=export)
-                    if tc.use_ema:
-                        ckpt.save_adapter_checkpoint(state.unet, model_config.unet, os.path.join(out, "non_ema"),
-                                                     save_motion=tc.update_motion_modules)
-                logger.info("saved checkpoint: %s", out)
+                with _whole(state, mesh):
+                    if main_rank:
+                        # with --use_ema the checkpoint downstream consumers load
+                        # is the EMA average; the live weights go to non_ema/
+                        export = state.ema if tc.use_ema else None
+                        if tc.train_mode == "t2i":
+                            ckpt.export_pipeline({"unet": ckpt.flax_tensors(state.unet, export, "params")},
+                                                 model_config, out, tc)
+                        else:
+                            ckpt.save_adapter_checkpoint(state.unet, model_config.unet, out,
+                                                         save_motion=tc.update_motion_modules, params=export)
+                            if tc.use_ema:
+                                ckpt.save_adapter_checkpoint(state.unet, model_config.unet,
+                                                             os.path.join(out, "non_ema"),
+                                                             save_motion=tc.update_motion_modules)
+                        logger.info("saved checkpoint: %s", out)
 
             if args.validation_epoch and (epoch + 1) % args.validation_epoch == 0 and args.eval_csv_path:
-                _run_validation(args, pipe, state, model_config, task_dir, epoch)
+                with _whole(state, mesh):
+                    if main_rank:
+                        _run_validation(args, pipe, state, model_config, task_dir, epoch)
 
             if tc.max_train_steps and global_step >= tc.max_train_steps:
                 break
@@ -398,20 +456,48 @@ def train(args, model_config: Optional[I2VModelConfig] = None) -> dict:
         if profiler is not None:
             profiler.stop()
         # the final whole-pipeline export, with the EMA weights under --use_ema
-        final = {"unet": ckpt.flax_tensors(state.unet, state.ema, "params"), "vae": pipe.vae,
-                 "text_encoder": pipe.text_encoder}
-        if pipe.image_encoder is not None:
-            final["image_encoder"] = pipe.image_encoder
-        ckpt.export_pipeline(final, model_config, os.path.join(task_dir, "pipeline"), tc)
+        with _whole(state, mesh):
+            if main_rank:
+                final = {"unet": ckpt.flax_tensors(state.unet, state.ema, "params"), "vae": pipe.vae,
+                         "text_encoder": pipe.text_encoder}
+                if pipe.image_encoder is not None:
+                    final["image_encoder"] = pipe.image_encoder
+                ckpt.export_pipeline(final, model_config, os.path.join(task_dir, "pipeline"), tc)
     except BaseException as e:
         body_error = e
         raise
     finally:
         if step_ckpt is not None:
             _commit_saves(step_ckpt, body_error)
-    metrics_log.finish()
+    if metrics_log is not None:
+        metrics_log.finish()
     return {"global_step": global_step, "last_loss": epoch_loss / max(n_steps, 1), **record,
             "state_saves": step_ckpt.saves if step_ckpt is not None else []}
+
+
+@contextlib.contextmanager
+def _whole(state, mesh):
+    """Over a mesh: the whole state in place on every rank while inside
+    (``Zero.materialized``; every rank gathers), and the ranks wait for
+    rank 0 at the exit (on the host's gloo group: rank 0 may sample for
+    minutes).  Nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    with state.zero.materialized(state):
+        yield
+    if mesh.control is not None:
+        torch.distributed.barrier(group=mesh.control)
+
+
+def _longest(length: int, mesh) -> int:
+    """The longest tokenised prompt of the global batch: this block's,
+    maxed over the ranks (on the host's gloo group) over a mesh."""
+    if mesh is None or mesh.control is None:
+        return length
+    t = torch.tensor([length])
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=mesh.control)
+    return int(t)
 
 
 def _commit_saves(step_ckpt, body_error: Optional[BaseException]) -> None:
@@ -468,17 +554,169 @@ def _run_validation(args, pipe, state, model_config, task_dir, epoch) -> list:
     return videos
 
 
-def main(argv=None, model_config: Optional[I2VModelConfig] = None) -> dict:
-    """The command line: train and print the result's summary as JSON.
-    ``model_config`` (default: SD1.5) is for callers that train another
-    architecture from code."""
-    result = train(parse_args(argv), model_config)
+def _world(args, ranks: Optional[int]) -> int:
+    """How many ranks to train on: ``ranks`` (CPU ranks from code), else
+    one per visible card (none asked for on the CPU)."""
+    if ranks is not None:
+        return ranks
+    dev = resolve_device(getattr(args, "device", None))
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _train_rank(args, model_config) -> dict:
+    """One rank of a meshed run (spawned, or this process under torchrun)."""
+    return train(args, model_config, mesh=create_mesh(args_to_train_config(args).mesh, device=args.device))
+
+
+def _on_ranks(fn, args, world: int, fn_args: tuple):
+    """``fn(*fn_args)`` on every rank: this process's under ``torchrun``,
+    else ``world`` spawned ranks (gloo on the CPU); rank 0's result."""
+    from i2v_adapter_tpu_torch.parallel.launch import run_ranks
+    from i2v_adapter_tpu_torch.parallel.mesh import init_distributed
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        init_distributed(device=args.device)
+        return fn(*fn_args)
+    return run_ranks(fn, world, fn_args, args.device)[0]
+
+
+def main(argv=None, model_config: Optional[I2VModelConfig] = None, ranks: Optional[int] = None):
+    """The command line: train and print the result's summary as JSON
+    (with ``--bench_scaling``: the bench's records).  ``model_config``
+    (default: SD1.5) is for callers that train another architecture from
+    code; ``ranks`` spawns that many ranks (on the CPU with ``--device
+    cpu``) in place of one per visible card."""
+    args = parse_args(argv)
+    if args.bench_scaling:
+        records = bench_scaling(args, model_config, ranks)
+        print(json.dumps(records))
+        return records
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    world = _world(args, ranks)
+    if torchrun or world > 1:
+        result = _on_ranks(_train_rank, args, world, (args, model_config))
+    else:
+        result = train(args, model_config)
     summary = {"global_step": result["global_step"], "last_loss": result["last_loss"]}
     if result["step_s"]:
         summary["mean_step_s"] = float(np.mean(result["step_s"]))
         summary["mean_data_wait_s"] = float(np.mean(result["data_wait_s"]))
     print(json.dumps(summary))
     return result
+
+
+# ---------------------------------------------------------------------------
+# the weak-scaling bench
+# ---------------------------------------------------------------------------
+
+
+def bench_shapes(text: str, n: int) -> list:
+    """``--bench_mesh_shapes`` ("data,fsdp,seq;...") -> the shapes that fit
+    ``n`` ranks."""
+    shapes = []
+    for part in text.split(";"):
+        d, f, s = (int(x) for x in part.split(","))
+        if d * f * s <= n:
+            shapes.append((d, f, s))
+    return shapes
+
+
+def bench_scaling(args, model_config: Optional[I2VModelConfig] = None, ranks: Optional[int] = None) -> list:
+    """The JAX driver's weak-scaling harness: time the meshed train step at
+    each ``--bench_mesh_shapes`` shape that fits the ranks, with a global
+    batch of ``train_batch_size`` clips per ``data`` x ``fsdp`` way (so the
+    work per rank is constant and the ideal curve is flat step time),
+    seeded random weights and a synthetic batch; append one JSONL record
+    per shape to ``--bench_output`` (the JAX record's keys; ``compile_s`` is
+    the first, untimed step's seconds) and return the records.  The ranks:
+    ``--bench_cpu_sim N`` gloo ranks on the CPU, else ``ranks``, else one
+    per visible card; every shape runs on the first ``data x fsdp x seq``
+    of them."""
+    logging.basicConfig(level=logging.INFO)
+    if args.bench_cpu_sim:
+        args.device, n = "cpu", args.bench_cpu_sim
+    else:
+        n = _world(args, ranks)
+    shapes = bench_shapes(args.bench_mesh_shapes, n)
+    world = max([d * f * s for d, f, s in shapes] or [1])
+    return _on_ranks(_bench_rank, args, world, (args, model_config, shapes))
+
+
+def _bench_rank(args, model_config, shapes) -> list:
+    from i2v_adapter_tpu_torch.config import tiny_test_config
+    from i2v_adapter_tpu_torch.parallel.mesh import local_batch
+    from i2v_adapter_tpu_torch.utils.random_init import random_train_state
+
+    tc0 = args_to_train_config(args)
+    if args.bench_model == "tiny":
+        mc, res, frames = tiny_test_config(), 32, 4
+    else:
+        mc, res, frames = model_config or I2VModelConfig(), tc0.resolution, tc0.num_frames
+    tok_len = 8 if args.bench_model == "tiny" else mc.text_encoder.max_position_embeddings
+    img = mc.image_encoder.image_size
+    control = None
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        control = torch.distributed.new_group(backend="gloo")
+    records = []
+    for d, fshard, s in shapes:
+        n = d * fshard * s
+        if frames % s != 0:
+            logger.warning("skip mesh %s: frames %d %% seq %d", (d, fshard, s), frames, s)
+            continue
+        mesh_cfg = MeshConfig(data=d, fsdp=fshard, tensor=1, seq=s)
+        mesh = create_mesh(mesh_cfg, device=args.device, members=range(n))
+        if mesh is not None:
+            batch_size = tc0.train_batch_size * d * fshard  # weak scaling
+            tc = tc0.replace(resolution=res, num_frames=frames, train_batch_size=batch_size,
+                             gradient_accumulation_steps=1, mesh=mesh_cfg,
+                             mixed_precision="none" if args.bench_model == "tiny" else tc0.mixed_precision)
+            records.append(_bench_shape(args, mc, tc, mesh, res, frames, tok_len, img, local_batch,
+                                        random_train_state))
+        if control is not None:
+            torch.distributed.barrier(group=control)
+    return records
+
+
+def _bench_shape(args, mc, tc, mesh, res, frames, tok_len, img, local_batch, random_train_state) -> dict:
+    """One shape's record (every rank of the mesh runs it; rank 0 appends
+    it to ``--bench_output``)."""
+    dev = mesh.device
+    d, fshard, s = mesh.shape["data"], mesh.shape["fsdp"], mesh.shape["seq"]
+    state = random_train_state(mc, tc, dev, seed=1, total_steps=100, mesh=mesh)
+    step_fn = make_train_step(mc, tc, mesh=mesh)
+    rng = np.random.default_rng(0)
+    b = tc.train_batch_size
+    batch = {
+        "pixel_values": rng.standard_normal((b, frames, res, res, 3)).astype(np.float32),
+        "text_ids": rng.integers(0, 100, (b, tok_len)).astype(np.int64),
+        "uncond_ids": np.zeros((b, tok_len), np.int64),
+        "clip_image": rng.standard_normal((b, img, img, 3)).astype(np.float32),
+    }
+    dev_batch = _to_device(local_batch(batch, mesh), dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, dev_batch, torch.Generator(device=dev).manual_seed(1))
+    loss = float(metrics["loss"])
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(args.bench_steps):
+        state, metrics = step_fn(state, dev_batch, torch.Generator(device=dev).manual_seed(2 + i))
+    loss = float(metrics["loss"])
+    sync()
+    step_s = (time.perf_counter() - t0) / max(args.bench_steps, 1)
+    rec = {"mesh": {"data": d, "fsdp": fshard, "seq": s}, "devices": d * fshard * s, "model": args.bench_model,
+           "resolution": res, "num_frames": frames, "global_batch": b, "step_time_s": round(step_s, 4),
+           "clips_per_s": round(b / step_s, 3), "clips_per_s_per_device": round(b / step_s / (d * fshard * s), 3),
+           "compile_s": round(compile_s, 1), "loss": loss}
+    if mesh.rank == 0:
+        logger.info("bench_scaling: %s", rec)
+        with open(args.bench_output, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    return rec
 
 
 if __name__ == "__main__":

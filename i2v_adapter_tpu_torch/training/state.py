@@ -201,6 +201,9 @@ class Optimizer:
         self.schedule = make_lr_schedule(oc, total_steps)
         self.every_k = config.gradient_accumulation_steps
         self.layouts: Dict[str, Tuple[int, ...]] = {}
+        # the state's ZeRO placement over a mesh (parallel.zero.place_train_state):
+        # the norm is the whole gradient's, Adafactor's statistics the whole leaf's
+        self.zero = None
 
     def init(self, params: Params, layouts: Optional[Dict[str, Tuple[int, ...]]] = None) -> OptState:
         """A zero state for ``params``; ``layouts`` maps a parameter name to
@@ -234,9 +237,13 @@ class Optimizer:
         perm = self.layouts.get(name)
         return x.permute(perm) if perm is not None else x
 
-    def update(self, grads: Params, state: OptState, params: Params) -> Params:
+    def update(self, grads: Params, state: OptState, params: Params,
+               norm: Optional[torch.Tensor] = None) -> Params:
+        """``norm``: ``global_norm(grads)`` when the caller has it already
+        (the clip then reuses it; under accumulation the clip takes the
+        accumulated gradient's norm)."""
         if self.every_k <= 1:
-            return self._inner(grads, state, params)
+            return self._inner(grads, state, params, norm)
         for n, g in grads.items():
             state.acc[n].add_((g - state.acc[n]) / (state.mini_step + 1))
         if state.mini_step < self.every_k - 1:
@@ -249,9 +256,18 @@ class Optimizer:
             acc.zero_()
         return updates
 
-    def _inner(self, grads: Params, state: OptState, params: Params) -> Params:
+    def global_norm(self, grads: Params) -> torch.Tensor:
+        """The L2 norm of the whole gradient (over a mesh, of every rank's
+        blocks together)."""
+        if self.zero is not None:
+            return torch.sqrt(self.zero.global_sq_norm(grads))
+        return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
+
+    def _inner(self, grads: Params, state: OptState, params: Params,
+               norm: Optional[torch.Tensor] = None) -> Params:
         oc = self.config
-        norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
+        if norm is None:
+            norm = self.global_norm(grads)
         clip = norm < oc.max_grad_norm
         grads = {n: torch.where(clip, g, (g / norm) * oc.max_grad_norm) for n, g in grads.items()}
         lr = self.schedule(state.count)
@@ -274,6 +290,8 @@ class Optimizer:
                 v = state.v[n]
                 v.copy_(keep * v + take * sq)
                 uf = gf * v ** -0.5
+            elif self.zero is not None:
+                uf = self._factored_sharded(n, gf, sq, state, keep, take)
             else:
                 d1, d0 = factored_dims(tuple(gf.shape))
                 vr, vc = state.v_row[n], state.v_col[n]
@@ -287,6 +305,53 @@ class Optimizer:
             u = uf.permute(_inverse(perm)) if perm is not None else uf
             updates[n] = (u * lr) * -1.0
         return updates
+
+
+    def _factored_sharded(self, n: str, gf, sq, state: OptState, keep: float, take: float):
+        """The factored update of a leaf whose gradient ``gf`` (Flax layout)
+        may be this rank's block over ``fsdp`` or ``tensor`` (``zero``):
+        the row and column means all-reduced over that axis where they run
+        across the block's dim, the statistics then taken whole (gathered
+        where the block's dim survives the mean, or where their own spec
+        keeps them split at rest), updated whole as one card updates them,
+        and stored back as their blocks; the factors applied to the block."""
+        from i2v_adapter_tpu_torch.parallel import collectives
+
+        zero = self.zero
+        k, axis = zero.flax_dims.get(("trainable", n), (None, None))
+        shape = list(gf.shape)
+        if k is not None:
+            group, ways = zero.mesh.group(axis), zero.mesh.size(axis)
+            shape[k] *= ways
+        d1, d0 = factored_dims(tuple(shape))
+
+        def whole_mean(dim: int):
+            m = sq.mean(dim=dim)
+            if k is None:
+                return m
+            if k == dim:  # equal blocks: the mean of the blocks' means
+                return collectives.all_reduce(m, "sum", group) / ways
+            return collectives.all_gather(m, k if k < dim else k - 1, group)
+
+        def whole_stat(field: str, t):
+            d, ax = zero.flax_dims.get((field, n), (None, None))
+            return t if d is None else collectives.all_gather(t, d, zero.mesh.group(ax))
+
+        def store(field: str, t, whole):
+            d, ax = zero.flax_dims.get((field, n), (None, None))
+            t.copy_(whole if d is None else zero.block(whole, d, ax))
+
+        vr = keep * whole_stat("opt_state/v_row", state.v_row[n]) + take * whole_mean(d0)
+        vc = keep * whole_stat("opt_state/v_col", state.v_col[n]) + take * whole_mean(d1)
+        store("opt_state/v_row", state.v_row[n], vr)
+        store("opt_state/v_col", state.v_col[n], vc)
+        row_col_mean = vr.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+        row_factor = ((vr / row_col_mean) ** -0.5).unsqueeze(d0)
+        col_factor = (vc ** -0.5).unsqueeze(d1)
+        if k is not None:
+            row_factor = row_factor if k == d0 else zero.block(row_factor, k, axis)
+            col_factor = col_factor if k == d1 else zero.block(col_factor, k, axis)
+        return gf * row_factor * col_factor
 
 
 def make_optimizer(config: TrainConfig, total_steps: int) -> Optimizer:
@@ -330,6 +395,8 @@ class TrainState:
     vae: Optional[nn.Module] = None
     text_encoder: Optional[nn.Module] = None
     image_encoder: Optional[nn.Module] = None
+    # over a mesh: the ZeRO placement (parallel.zero); the tensors are blocks
+    zero: Optional[object] = None
 
     def trainable_params(self) -> Params:
         named = dict(self.unet.named_parameters())
@@ -343,11 +410,16 @@ def create_train_state(
     vae: Optional[nn.Module] = None,
     text_encoder: Optional[nn.Module] = None,
     image_encoder: Optional[nn.Module] = None,
+    mesh=None,
+    shardings: Optional[Dict[str, tuple]] = None,
 ) -> TrainState:
     """Take ownership of the models: split the UNet by the freeze policy,
     keep trainables in fp32, cast the frozen weights and the towers to
     ``freeze_dtype`` in place, and set the UNet's activation checkpointing
-    from ``gradient_checkpointing``."""
+    from ``gradient_checkpointing``.  With ``mesh`` the state is placed
+    over it (``parallel.zero.place_train_state``) by ``shardings`` (default:
+    ``train_state_shardings`` with ``config.fsdp_frozen``): each rank keeps
+    its blocks."""
     trainable, frozen = partition_params(unet, trainable_predicate(config))
     if not trainable:
         raise ValueError("freeze policy produced no trainable parameters")
@@ -368,12 +440,17 @@ def create_train_state(
     unet.config = unet.config.replace(remat=config.gradient_checkpointing)
     optimizer = make_optimizer(config, total_steps)
     params = {n: named[n] for n in trainable}
-    return TrainState(
+    state = TrainState(
         step=0, unet=unet, trainable=trainable, frozen=frozen, optimizer=optimizer,
         opt_state=optimizer.init(params, flax_layouts(unet, trainable)),
         ema={n: p.detach().clone() for n, p in params.items()} if config.use_ema else None,
         vae=vae, text_encoder=text_encoder, image_encoder=image_encoder,
     )
+    if mesh is not None:
+        from i2v_adapter_tpu_torch.parallel.zero import place_train_state
+
+        place_train_state(state, mesh, shardings, frozen_replicated=config.fsdp_frozen == "replicate")
+    return state
 
 
 def ema_update(ema: Params, params: Params, decay: float) -> None:

@@ -50,10 +50,12 @@ def random_pipeline(model_cfg, pipe_cfg, device, seed: int = 1, unet=None):
     return I2VAdapterPipeline(model_cfg, modules, tok, pipe_cfg, device=device)
 
 
-def random_train_state(model_cfg, train_cfg, device, seed: int = 1, total_steps: int = 1000):
+def random_train_state(model_cfg, train_cfg, device, seed: int = 1, total_steps: int = 1000, mesh=None,
+                       shardings=None):
     """A ``TrainState`` on ``device`` with seeded random weights at the
     configuration's widths (UNet, VAE, CLIP text and, with the IP-Adapter,
-    CLIP vision)."""
+    CLIP vision); placed over ``mesh`` by ``shardings`` when given
+    (``create_train_state``)."""
     from i2v_adapter_tpu_torch.models import (
         AutoencoderKL,
         CLIPTextEncoder,
@@ -68,7 +70,7 @@ def random_train_state(model_cfg, train_cfg, device, seed: int = 1, total_steps:
         randomize_(VideoUNet(model_cfg.unet, device=device), seed), train_cfg, total_steps,
         vae=randomize_(AutoencoderKL(model_cfg.vae, device=device), seed + 2),
         text_encoder=randomize_(CLIPTextEncoder(model_cfg.text_encoder, device=device), seed + 3),
-        image_encoder=image,
+        image_encoder=image, mesh=mesh, shardings=shardings,
     )
 
 

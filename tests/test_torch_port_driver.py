@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: the training driver and what it writes.
 
 * ``parse_args``: the JAX driver's flags, defaults and errors (plus
-  ``--device``); the multi-GPU options refused;
+  ``--device``); the multi-GPU options on 2 gloo ranks: the one-process
+  run's losses, its checkpoints, the scaling bench's records;
 * Adafactor (factored and unfactored leaves, clipping, MultiSteps) against
   the JAX ``make_optimizer`` over several updates, 1e-6; a JAX Adafactor /
   MultiSteps state carried into the port by ``load_train_state``;
@@ -43,6 +44,7 @@ from i2v_adapter_tpu.utils import convert as jconvert
 from i2v_adapter_tpu_torch import config as pconfig
 from i2v_adapter_tpu_torch.data import native as pnative
 from i2v_adapter_tpu_torch.models import layers as player
+from i2v_adapter_tpu_torch.parallel import mesh as pmesh
 from i2v_adapter_tpu_torch.pipelines import I2VAdapterPipeline
 from i2v_adapter_tpu_torch.training import checkpoint as pckpt
 from i2v_adapter_tpu_torch.training import driver as pdriver
@@ -159,10 +161,52 @@ def test_parse_args_errors_match_jax(capsys):
     assert pdriver.parse_args(["--bench_scaling"]).bench_scaling  # no paths needed, as in JAX
 
 
+@pytest.fixture(scope="module")
+def unmeshed_run(env):
+    """The driver on one process: the losses the meshed runs must equal."""
+    return _train(env, task_name="one_rank", checkpointing_steps=2)
+
+
 @pytest.mark.parametrize("flags", [["--data_fsdp", "2"], ["--seq_parallel", "2"], ["--bench_scaling"]])
-def test_multi_gpu_options_refused(env, flags):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pdriver.main(_argv(env, device="cpu") + flags, model_config=PCFG)
+def test_multi_gpu_options_refused(env, unmeshed_run, flags, tmp_path):
+    """The JAX driver's multi-device options, once refused, run on 2 gloo
+    ranks (``main(..., ranks=2)``): ``--data_fsdp 2`` (the batch's 2 clips
+    over fsdp, each rank decoding its clip) and ``--seq_parallel 2`` (the 4
+    frames over seq) give the one-process run's per-step losses within
+    1e-5 and write its full-state and epoch checkpoints; ``--bench_scaling``
+    writes one record per shape that fits 2 ranks, with the JAX record's
+    keys.  A batch that does not split is refused before the first step."""
+    if flags == ["--bench_scaling"]:
+        out = str(tmp_path / "bench.jsonl")
+        records = pdriver.main(["--bench_scaling", "--bench_model", "tiny", "--bench_steps", "1",
+                                "--bench_mesh_shapes", "1,1,1;2,1,1;1,2,1;1,1,2;2,2,1", "--bench_output", out,
+                                "--train_batch_size", "1", "--device", "cpu"], ranks=2)
+        with open(out) as f:
+            written = [json.loads(line) for line in f]
+        assert written == records and [r["mesh"] for r in records] == [
+            {"data": 1, "fsdp": 1, "seq": 1}, {"data": 2, "fsdp": 1, "seq": 1}, {"data": 1, "fsdp": 2, "seq": 1},
+            {"data": 1, "fsdp": 1, "seq": 2}]
+        assert set(records[0]) == {"mesh", "devices", "model", "resolution", "num_frames", "global_batch",
+                                   "step_time_s", "clips_per_s", "clips_per_s_per_device", "compile_s", "loss"}
+        assert [r["global_batch"] for r in records] == [1, 2, 2, 1] and all(np.isfinite(r["loss"]) for r in records)
+        return
+    task = "mesh_" + flags[0].strip("-")
+    result = pdriver.main(_argv(env, device="cpu", task_name=task, checkpointing_steps=2) + flags,
+                          model_config=PCFG, ranks=2)
+    np.testing.assert_allclose(result["losses"], unmeshed_run["losses"], rtol=0, atol=1e-5)
+    task_dir = os.path.join(env["root"], "port", task)
+    assert [s["step"] for s in result["state_saves"]] == [2]
+    one = _load(os.path.join(env["root"], "port", "one_rank", "state", "step_2.safetensors"))
+    meshed = _load(os.path.join(task_dir, "state", "step_2.safetensors"))
+    assert set(meshed) == set(one) and all(meshed[k].shape == one[k].shape for k in one)
+    assert os.path.exists(os.path.join(task_dir, "epoch_1", "i2v_adapter", "diffusion_pytorch_model.safetensors"))
+    assert os.path.exists(os.path.join(task_dir, "pipeline", "unet", "flax_model.safetensors"))
+    # the refusal setup() makes before anything is built, on this mesh's shape
+    odd = {"train_batch_size": 1} if flags[0] == "--data_fsdp" else {"n_frames": 3}
+    tc = pdriver.args_to_train_config(pdriver.parse_args(_argv(env, device="cpu", **odd) + flags))
+    mesh = pmesh.Mesh(dict(zip(pmesh.AXES, pmesh.mesh_shape(tc.mesh, 2))), 0, torch.device("cpu"), {})
+    with pytest.raises(ValueError, match="do not split over the mesh"):
+        pdriver.check_mesh_divides(tc, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ package on the 8-device CPU mesh of ``tests/conftest.py``.
   unmeshed daemon's, a failing request failed on both ranks between them;
 * the audit: one step's and one decode's collectives equal
   ``collectives_per_unet_eval`` / ``collectives_per_decode``;
-  ``audit_multichip --case train`` is refused.
+  ``audit_multichip --case train`` runs a train step's audit.
 """
 
 import json
@@ -327,10 +327,21 @@ def test_audit_counts_equal_formula(runs):
 
 
 def test_audit_train_case_waits_for_training_over_a_mesh():
+    """``--case train_motion_512`` audits one train step at the tiny config
+    on 4 gloo ranks, (1,2,1,2) with the state's leaves sharded
+    (``min_size`` lowered) and the motion modules trained: every kind of
+    the forward, the backward and ZeRO recorded, equal to the formula."""
     from i2v_adapter_tpu_torch.tools import audit_multichip
 
-    with pytest.raises(NotImplementedError, match="training over a mesh"):
-        audit_multichip.main(["--case", "train", "--device", "cpu"])
+    out = audit_multichip.main(["--case", "train_motion_512", "--device", "cpu", "--tiny"], min_size=1024)
+    case = out["cases"]["train_motion_512"]
+    assert out["devices"] == 4 and case["counts_match"]
+    assert set(case["expected_counts"]) == {"all-gather", "reduce-scatter", "all-to-all", "all-reduce",
+                                            "collective-broadcast", "reduce"}
+    assert case["wire_gb_per_device"] > 0 and np.isfinite(case["loss"])
+    assert len(set(case["state_bytes_per_rank"])) == 1 and case["meta"]["mesh"]["fsdp"] == 2
+    with pytest.raises(ValueError, match="four positive integers"):
+        audit_multichip.main(["--case", "train_dp", "--device", "cpu", "--tiny", "--mesh", "2,1,2"])
 
 
 # ---------------------------------------------------------------------------

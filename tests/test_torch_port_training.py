@@ -76,10 +76,14 @@ def test_train_config_validation_matches_jax(kwargs):
 
 
 def test_unported_training_options_raise():
-    """A mesh is still refused; Adafactor is ported (held against optax in
-    tests/test_torch_port_driver.py) and builds."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pconfig.TrainConfig(mesh=pconfig.MeshConfig(data=4))
+    """Every training option of the JAX config is ported: a mesh builds, as
+    the JAX ``TrainConfig`` takes it (training over it is held in
+    tests/test_torch_port_train_mesh.py), and so does Adafactor (held
+    against optax in tests/test_torch_port_driver.py)."""
+    tc = pconfig.TrainConfig(mesh=pconfig.MeshConfig(data=4))
+    assert tc.mesh == pconfig.MeshConfig(data=4)
+    assert tc.to_dict() == jconfig.TrainConfig(mesh=jconfig.MeshConfig(data=4)).to_dict()
+    assert pconfig.TrainConfig.from_dict(tc.to_dict()).mesh == tc.mesh
     tc = pconfig.TrainConfig(optimizer=pconfig.OptimizerConfig(optimizer="adafactor"))
     assert make_optimizer(tc, 10).kind == "adafactor"
 
