@@ -1,0 +1,7 @@
+"""The share of its roofline that ``kernels/flash_attention.py``'s kernel reaches in
+the traced micro-step, %."""
+from portbench.readers import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "flash_attention")
