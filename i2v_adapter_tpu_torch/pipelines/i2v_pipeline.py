@@ -48,7 +48,6 @@ import contextlib
 import glob
 import itertools
 import os
-import time
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -75,7 +74,7 @@ from i2v_adapter_tpu_torch.pipelines.tiling import temporal_windows, tiled_unet_
 from i2v_adapter_tpu_torch.schedulers import add_noise, ddim_schedule_arrays, ddim_step, make_schedule
 from i2v_adapter_tpu_torch.utils import convert
 from i2v_adapter_tpu_torch.utils import image as image_utils
-from i2v_adapter_tpu_torch.utils import lora
+from i2v_adapter_tpu_torch.utils import lora, tracing
 from i2v_adapter_tpu_torch.utils.convert import load_flax_params
 from i2v_adapter_tpu_torch.utils.tokenizer import CLIPTokenizer
 
@@ -143,6 +142,25 @@ def meshed_unet_eval(mesh, evaluate, x: torch.Tensor, text_states: torch.Tensor,
     return eps if enc is None else (eps, enc)
 
 
+def span_views(root) -> Tuple[dict, dict]:
+    """``(last_timings, last_dispatch)`` of one request's spans (or of a
+    denoise loop's, driven directly): ``prep_ms`` and ``decode_ms`` (host ms
+    between synchronisations), ``step_ms`` (each step's device ms where the
+    steps were timed on the card, else its host ms); the request's
+    ``dispatch`` and, under ``'scan'``, each ``capture_ms``, the loop's
+    ``graph_pool_bytes`` and its ``graph_cache`` state."""
+    prep, decode = root.find("prep"), root.find("decode")
+    timings = {"prep_ms": prep[-1].ms} if prep else {}
+    timings["step_ms"] = [s.ms if s.device_ms is None else s.device_ms for s in root.find("step")]
+    if decode:
+        timings["decode_ms"] = decode[-1].ms
+    dispatch = {} if root.name == "denoise" else dict(root.attrs)
+    for s in root.unit + [root]:
+        if s.name == "denoise" and "graph_cache" in s.attrs:
+            dispatch.update(capture_ms=[c.ms for c in root.find("capture")], **s.attrs)
+    return timings, dispatch
+
+
 _SCAN_STREAMS: dict = {}
 
 
@@ -195,7 +213,6 @@ class StepGraphs:
         self.noise = torch.empty_like(self.latents) if eta > 0.0 else None
         self.caches = None  # the last 'full' step's down-path features
         self.graphs, self.counts, self.seen = {}, {}, set()
-        self.capture_ms: List[float] = []  # this call's captures
         self.pool_bytes = 0  # the card memory the captures reserved
 
     def load(self, consts, latents: torch.Tensor, generator=None) -> None:
@@ -207,7 +224,6 @@ class StepGraphs:
                 dst.copy_(src)
         self.latents.copy_(latents)
         self.generator = generator
-        self.capture_ms = []
 
     def _body(self, kind: str) -> None:
         args = (self.consts, self.latents, self.t, self.tp)
@@ -242,14 +258,13 @@ class StepGraphs:
         if torch.cuda.mem_get_info()[0] < 2 * (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()):
             torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
         # graphs alive together share the first one's pool (they replay in
         # the order they were captured); a graph with none alive beside it
         # starts a pool of its own.  Captured on the current (side) stream.
         shared = next(iter(self.graphs.values()), None)
-        self.graphs[kind], self.counts[kind] = launches.capture(
-            lambda: self._body(kind), pool=shared.pool() if shared is not None else None)
-        self.capture_ms.append((time.perf_counter() - t0) * 1e3)
+        with tracing.span("capture", kind=kind):
+            self.graphs[kind], self.counts[kind] = launches.capture(
+                lambda: self._body(kind), pool=shared.pool() if shared is not None else None)
         self.pool_bytes += torch.cuda.memory_reserved() - reserved
 
     def release(self, kind: str) -> None:
@@ -300,9 +315,10 @@ class I2VAdapterPipeline:
             if model_config.unet.use_ip_adapter else None
         )
         self.schedule = make_schedule(model_config.scheduler)
+        # views of the last request's spans (span_views): its phases' ms;
+        # its dispatch, and under 'scan' its captures' host ms, the graphs'
+        # pool bytes and the graph cache's state
         self.last_timings: dict = {}
-        # the last call's dispatch, and under 'scan' its captures' host ms
-        # and the graphs' pool bytes
         self.last_dispatch: dict = {}
         self.mesh = None
         self.prepare_int8()
@@ -628,42 +644,47 @@ class I2VAdapterPipeline:
 
         def prep_fn(text_ids, cond_image, clip_image, generator=None, *,
                     posterior_noise=None, mask_uniform=None, prior_noise=None, init_latents=None):
-            text_states = self.text_encoder(torch.as_tensor(text_ids, device=dev))
+            with tracing.span("text_encoder"):
+                text_states = self.text_encoder(torch.as_tensor(text_ids, device=dev))
             image_embeds = None
             if cfg.unet.use_ip_adapter:
-                clip = torch.as_tensor(clip_image, device=dev)
-                if cfg.unet.ip_variant == "standard":
-                    image_embeds = self.image_encoder(clip)
-                    uncond = torch.zeros_like(image_embeds)
-                else:  # plus / full_face read the penultimate hidden states;
-                    # the unconditional branch encodes a zero image
-                    image_embeds = self.image_encoder(clip, output_hidden_state=True)[1]
-                    uncond = self.image_encoder(torch.zeros_like(clip), output_hidden_state=True)[1]
-                if use_cfg:
-                    image_embeds = torch.cat([uncond, image_embeds])
+                with tracing.span("image_encoder"):
+                    clip = torch.as_tensor(clip_image, device=dev)
+                    if cfg.unet.ip_variant == "standard":
+                        image_embeds = self.image_encoder(clip)
+                        uncond = torch.zeros_like(image_embeds)
+                    else:  # plus / full_face read the penultimate hidden states;
+                        # the unconditional branch encodes a zero image
+                        image_embeds = self.image_encoder(clip, output_hidden_state=True)[1]
+                        uncond = self.image_encoder(torch.zeros_like(clip), output_hidden_state=True)[1]
+                    if use_cfg:
+                        image_embeds = torch.cat([uncond, image_embeds])
             if not has_condition:
-                if init_latents is not None:
-                    latents = torch.as_tensor(init_latents, device=dev).float()
-                else:
-                    latents = torch.randn(prior_shape, generator=generator, device=dev)
+                with tracing.span("prior"):
+                    if init_latents is not None:
+                        latents = torch.as_tensor(init_latents, device=dev).float()
+                    else:
+                        latents = torch.randn(prior_shape, generator=generator, device=dev)
                 return latents, (None, text_states, image_embeds)
-            cond = torch.as_tensor(cond_image, device=dev).to(dtype)
             if posterior_noise is None and generator is None:
                 raise ValueError("prep_fn needs a generator or the posterior noise")
-            cond_latents = self.vae.encode(cond, noise=posterior_noise, generator=generator) * scale
-            sigma = pcfg.blur_sigma
-            if sigma is None:
-                sigma = float(torch.rand((), generator=generator, device=dev)) * 1.9 + 0.1
-            blurred = gaussian_blur(cond_latents, pcfg.blur_kernel_size, sigma)
-            if mask_uniform is None:
-                mask_uniform = torch.rand(prior_shape, generator=generator, device=dev)
-            mask = (mask_uniform < pcfg.frame_similarity_blurred_strength).to(cond_latents.dtype)
-            prior = mask * blurred[:, None] + (1 - mask) * cond_latents[:, None]
-            if prior_noise is None:
-                prior_noise = torch.randn(prior_shape, generator=generator, device=dev)
-            latents = add_noise(
-                schedule, prior.float(), prior_noise.float(), torch.full((batch,), int(ts[0]))
-            )
+            with tracing.span("vae_encode"):
+                cond = torch.as_tensor(cond_image, device=dev).to(dtype)
+                cond_latents = self.vae.encode(cond, noise=posterior_noise, generator=generator) * scale
+            with tracing.span("prior"):
+                sigma = pcfg.blur_sigma
+                if sigma is None:
+                    sigma = float(torch.rand((), generator=generator, device=dev)) * 1.9 + 0.1
+                blurred = gaussian_blur(cond_latents, pcfg.blur_kernel_size, sigma)
+                if mask_uniform is None:
+                    mask_uniform = torch.rand(prior_shape, generator=generator, device=dev)
+                mask = (mask_uniform < pcfg.frame_similarity_blurred_strength).to(cond_latents.dtype)
+                prior = mask * blurred[:, None] + (1 - mask) * cond_latents[:, None]
+                if prior_noise is None:
+                    prior_noise = torch.randn(prior_shape, generator=generator, device=dev)
+                latents = add_noise(
+                    schedule, prior.float(), prior_noise.float(), torch.full((batch,), int(ts[0]))
+                )
             return latents, (cond_latents, text_states, image_embeds)
 
         def local_eval(x, t, text_states, image_embeds, **kw):
@@ -862,100 +883,106 @@ class I2VAdapterPipeline:
         return "stepwise" if work > self.SCAN_DISPATCH_MAX_WORK else "scan"
 
     def _denoise(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None,
-                 callback=None, callback_steps: int = 1):
+                 callback=None, callback_steps: int = 1, views: bool = True):
         """The stepwise denoise loop over ``parts`` (``_build_parts``' result),
-        as the JAX stepwise sampler drives its parts, step by ``step_kinds``.
-        Each step's synchronised time is appended to
-        ``last_timings["step_ms"]``; ``callback(i, t, latents)`` runs after
-        every ``callback_steps``-th step."""
+        as the JAX stepwise sampler drives its parts, step by ``step_kinds``,
+        in a ``denoise`` span.  Each step is a ``step`` span between two
+        synchronisations (``last_timings["step_ms"]``); ``callback(i, t,
+        latents)`` runs after every ``callback_steps``-th step; ``views``
+        (a loop driven directly): ``_top``."""
         _, step_fn, _, ts, prev, (step_full, step_cached, step_cond) = parts
         fns = {"cfg": step_fn, "cond": step_cond}
         caches = None
-        t1 = self._sync()
-        for i, (kind, t, tp) in enumerate(zip(step_kinds(len(ts), encoder_cache, n_cfg), ts, prev)):
-            if kind == "full":
-                latents, caches = step_full(consts, latents, t, tp, generator=generator)
-            elif kind == "cached":
-                latents, caches = step_cached(consts, latents, t, tp, caches, generator=generator), None
-            else:
-                latents = fns[kind](consts, latents, t, tp, generator=generator)
-            t2 = self._sync()
-            self.last_timings.setdefault("step_ms", []).append((t2 - t1) * 1e3)
-            if callback is not None and i % callback_steps == 0:
-                callback(i, int(t), latents)
-            t1 = self._sync()
-        return latents
+        with self._top("denoise", views):
+            self._sync()
+            for i, (kind, t, tp) in enumerate(zip(step_kinds(len(ts), encoder_cache, n_cfg), ts, prev)):
+                with tracing.span("step", device_ms=False):
+                    if kind == "full":
+                        latents, caches = step_full(consts, latents, t, tp, generator=generator)
+                    elif kind == "cached":
+                        latents, caches = step_cached(consts, latents, t, tp, caches, generator=generator), None
+                    else:
+                        latents = fns[kind](consts, latents, t, tp, generator=generator)
+                    self._sync()
+                if callback is not None and i % callback_steps == 0:
+                    callback(i, int(t), latents)
+                    self._sync()
+            return latents
 
     def _denoise_scan(self, parts, consts, latents, encoder_cache: int, n_cfg: int, generator=None,
-                      keep: Optional[tuple] = None):
+                      keep: Optional[tuple] = None, room: Optional[int] = None, views: bool = True):
         """The same loop from ``StepGraphs``, on a side stream of the card
-        (the current stream waits for it at the end).  Step times are CUDA
-        events read once after the loop (``last_timings["step_ms"]``); this
-        call's captures' host time goes to ``last_dispatch["capture_ms"]``,
-        the loop's pool to ``last_dispatch["graph_pool_bytes"]``.  With
-        ``keep`` (the shape bucket's key) the loop is kept in the graph
-        cache for later calls: found there, it takes this call's consts and
-        starting latents into its buffers and replays the kinds it captured
-        before (``last_dispatch["graph_cache"]["hit"]``).  Without it the
-        graphs and their pool are released by the end of the loop."""
+        (the current stream waits for it at the end), in a ``denoise`` span
+        whose children are the ``empty_cache`` before the loop, each
+        ``capture`` (its host ms: ``last_dispatch["capture_ms"]``) and each
+        ``step``, timed on the card by CUDA events read once after the loop
+        (``last_timings["step_ms"]``); the loop's pool goes to
+        ``last_dispatch["graph_pool_bytes"]``.  With ``keep`` (the shape
+        bucket's key) the loop is kept in the graph cache for later calls:
+        found there, it takes this call's consts and starting latents into
+        its buffers and replays the kinds it captured before
+        (``last_dispatch["graph_cache"]["hit"]``).  Without it the graphs
+        and their pool are released by the end of the loop.  With ``room``
+        the kept loops are then trimmed to hold at most that many bytes;
+        ``views`` (a loop driven directly): ``_top``."""
         ts, prev = parts[3], parts[4]
         kinds = step_kinds(len(ts), encoder_cache, n_cfg)
         last_use = {kind: i for i, kind in enumerate(kinds)}
         cuda = self.device.type == "cuda"
         cache = self._graph_cache()
-        loop = cache.pop(keep, None) if keep is not None else None
-        hit = loop is not None
-        if not hit:  # its buffers made on the current stream, before the side stream waits for it
-            loop = StepGraphs(parts, consts, latents, generator, self.pipe_config.eta)
-            self._graph_builds = self.__dict__.get("_graph_builds", 0) + 1
-        side = None
-        if cuda:
-            # blocks cached by earlier work (a previous clip's decode) go back
-            # to the card now, while it idles after prep: the graphs' pool is
-            # then made beside the eager steps' working set without emptying
-            # the cache at a capture, where it would stall the card
-            torch.cuda.empty_cache()
-            side = _scan_stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-        marks = []
+        with self._top("denoise", views) as span:
+            loop = cache.pop(keep, None) if keep is not None else None
+            hit = loop is not None
+            if not hit:  # its buffers made on the current stream, before the side stream waits for it
+                loop = StepGraphs(parts, consts, latents, generator, self.pipe_config.eta)
+                self._graph_builds = self.__dict__.get("_graph_builds", 0) + 1
+            side = None
+            if cuda:
+                # blocks cached by earlier work (a previous clip's decode) go back
+                # to the card now, while it idles after prep: the graphs' pool is
+                # then made beside the eager steps' working set without emptying
+                # the cache at a capture, where it would stall the card
+                with tracing.span("empty_cache"):
+                    torch.cuda.empty_cache()
+                side = _scan_stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+                if hit:
+                    loop.load(consts, latents, generator)
+                for i, (kind, t, tp) in enumerate(zip(kinds, ts, prev)):
+                    with tracing.span("step", device_ms=cuda):
+                        loop.step(kind, t, tp)
+                    if keep is None and last_use[kind] == i:
+                        loop.release(kind)
+            if cuda:
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                side.synchronize()
+            if keep is None:
+                latents = loop.latents
+                loop.close()
+            else:  # the buffer is the next call's: hand out a copy
+                latents = loop.latents.clone()
+                cache[keep] = loop
+            if room is not None:
+                self._trim_graphs(room)
+            span.attrs.update(graph_pool_bytes=loop.pool_bytes, graph_cache={
+                "hit": hit, "builds": self._graph_builds, "kept": keep in cache, "entries": len(cache),
+                "pool_bytes": sum(entry.pool_bytes for entry in cache.values())})
+            return latents
 
-        def mark():
-            if not cuda:
-                return time.perf_counter()
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
+    @contextlib.contextmanager
+    def _top(self, name: str, views: bool):
+        """The span ``name``; with ``views`` (a request, or a denoise loop
+        driven directly) ``last_timings`` and ``last_dispatch`` become views
+        of its spans once it has closed without an error (``span_views``)."""
+        with tracing.span(name) as span:
+            yield span
+        if views:
+            self.last_timings, self.last_dispatch = span_views(span)
 
-        with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
-            if hit:
-                loop.load(consts, latents, generator)
-            for i, (kind, t, tp) in enumerate(zip(kinds, ts, prev)):
-                start = mark()
-                loop.step(kind, t, tp)
-                marks.append((start, mark()))
-                if keep is None and last_use[kind] == i:
-                    loop.release(kind)
-        if cuda:
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            side.synchronize()
-            step_ms = [a.elapsed_time(b) for a, b in marks]
-        else:
-            step_ms = [(b - a) * 1e3 for a, b in marks]
-        if keep is None:
-            latents = loop.latents
-            loop.close()
-        else:  # the buffer is the next call's: hand out a copy
-            latents = loop.latents.clone()
-            cache[keep] = loop
-        self.last_timings["step_ms"] = step_ms
-        self.last_dispatch.update(capture_ms=loop.capture_ms, graph_pool_bytes=loop.pool_bytes,
-                                  graph_cache={"hit": hit, "builds": self._graph_builds})
-        return latents
-
-    def _sync(self) -> float:
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
     def _check_memory_envelope(self, evals: int, height: int, width: int, batch: int) -> None:
         """Refuse a request whose UNet working set exceeds the card's measured
@@ -1047,8 +1074,14 @@ class I2VAdapterPipeline:
         float32 in [-1, 1] (``'pt'`` or ``'float'``), or the final latents
         without a decode (``'latent'``: (B, F, h, w, 4) float32, the first
         frame clamped to the condition, still times ``scaling_factor``).
-        Phase times of the call (ms, synchronised on the GPU) are left in
-        ``self.last_timings``; ``'latent'`` has no ``decode_ms``.
+        The call is a ``request`` span (``utils.tracing``) whose children
+        are ``inputs`` (the host's work before prep), ``prep`` (with
+        ``text_encoder``, ``image_encoder``, ``vae_encode`` and ``prior``),
+        ``denoise`` (its ``step`` spans), ``decode`` (with the allocator's
+        counters) and ``finish`` (the copy to the host, the finite check and
+        the uint8 conversion); ``self.last_timings`` and
+        ``self.last_dispatch`` are views of them (``span_views``);
+        ``'latent'`` has no ``decode_ms``.
 
         The arguments are the JAX ``__call__``'s:
 
@@ -1083,160 +1116,159 @@ class I2VAdapterPipeline:
           (None: the pipeline config's) and are not composed.
         * ``callback(i, t, latents)`` after every ``callback_steps``-th
           denoise step, with the latents on the device."""
-        if output_type not in ("np", "pt", "float", "latent"):
-            raise ValueError(f"output_type must be 'np', 'pt', 'float' or 'latent', got {output_type!r}")
-        if dispatch not in ("auto", "scan", "stepwise"):
-            raise ValueError(f"dispatch must be auto/scan/stepwise, got {dispatch!r}")
-        if callback is not None:
-            if callback_steps < 1:
-                raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
+        with self._top("request", views=True) as request:
+            with tracing.span("inputs"):
+                if output_type not in ("np", "pt", "float", "latent"):
+                    raise ValueError(f"output_type must be 'np', 'pt', 'float' or 'latent', got {output_type!r}")
+                if dispatch not in ("auto", "scan", "stepwise"):
+                    raise ValueError(f"dispatch must be auto/scan/stepwise, got {dispatch!r}")
+                if callback is not None:
+                    if callback_steps < 1:
+                        raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
+                    if dispatch == "scan":
+                        raise ValueError("per-step callback requires stepwise dispatch (the fused scan runs "
+                                         "the whole clip as one device program); pass dispatch='stepwise' or 'auto'")
+                if num_videos_per_prompt < 1:
+                    raise ValueError(f"num_videos_per_prompt must be >= 1, got {num_videos_per_prompt}")
+                pcfg = self.pipe_config
+                encoder_cache = pcfg.encoder_cache if encoder_cache is None else encoder_cache
+                cfg_cutoff = pcfg.cfg_cutoff if cfg_cutoff is None else cfg_cutoff
+                if encoder_cache not in (1, 2):
+                    raise ValueError(f"encoder_cache must be 1 (off) or 2, got {encoder_cache}")
+                if not 0.0 <= cfg_cutoff <= 1.0:
+                    raise ValueError(f"cfg_cutoff must be in [0, 1], got {cfg_cutoff}")
+                num_frames = num_frames or pcfg.num_frames
+                height = height or pcfg.height
+                width = width or pcfg.width
+                steps = num_inference_steps or pcfg.num_inference_steps
+                guidance = guidance_scale if guidance_scale is not None else pcfg.guidance_scale
+                strength = (
+                    frame_similarity_sample_ratio if frame_similarity_sample_ratio is not None
+                    else pcfg.frame_similarity_sample_ratio
+                )
+                prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+                use_cfg = guidance > 1.0
+                has_condition = condition_image is not None
+                if negative_prompt is None:
+                    negatives = [""] * len(prompts)
+                elif isinstance(negative_prompt, str):
+                    negatives = [negative_prompt] * len(prompts)
+                else:
+                    negatives = list(negative_prompt)
+                # interleaved ([p0, p0, p1, p1] for N = 2), as the reference repeats
+                n = num_videos_per_prompt
+                prompts = [p for p in prompts for _ in range(n)]
+                negatives = [p for p in negatives for _ in range(n)]
+                batch = len(prompts)
+                if not use_cfg:
+                    cfg_cutoff = 1.0  # guidance already off: nothing to cut
+                if encoder_cache > 1 and cfg_cutoff < 1.0:
+                    raise ValueError(
+                        "cfg_cutoff and encoder_cache are separate content-level approximations and are "
+                        "not composed (the turbo step pair would need cond-only full/cached variants); pick one")
+
+                evals = batch * num_frames * (2 if use_cfg else 1)
+                # temporal tiling holds one anchored window of frames at a time
+                motion_cap = self.config.unet.motion_max_seq_length
+                window = min(pcfg.temporal_window, motion_cap - 1) if num_frames > motion_cap else None
+                concurrent_evals = evals if window is None else batch * (window + 1) * (2 if use_cfg else 1)
+                sf = self.config.vae.spatial_scale_factor
+                lh, lw = height // sf, width // sf
+                tokens = lh * lw
+                if unet_chunk == 0:
+                    unet_chunk = 2 if evals * tokens >= self.UNET_CHUNK_AUTO_EVAL_TOKENS else 1
+                if decode_slice == 0 and batch * num_frames > 64:
+                    decode_slice = 32
+                if decode_slice == 0 and tokens > 4096 and batch * num_frames > 8:
+                    decode_slice = 2
+                frames = batch * num_frames
+                frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
+                # decode_tiled's tiles are at most 64 latents a side
+                decode_tokens = frames * (min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
+                if not memory_unsafe:
+                    self._check_memory_envelope(concurrent_evals, height, width, batch)
+                    if encoder_cache > 1:
+                        self._check_encoder_cache_budget(num_frames, height, width, batch, use_cfg, window)
+                    if output_type != "latent":
+                        self._check_decode_envelope(frames, decode_tokens // frames)
+                dispatch = self._resolve_dispatch(dispatch, callback, steps, batch, num_frames, window, use_cfg, tokens)
+                init_latents = None
+                if latents is not None and not has_condition:
+                    lat_shape = (batch, num_frames, height // sf, width // sf, self.config.unet.in_channels)
+                    init_latents = np.asarray(latents, dtype=np.float32)
+                    if init_latents.shape != lat_shape:
+                        raise ValueError(f"latents shape {init_latents.shape} != expected {lat_shape}")
+
+                text_ids = self.tokenizer(negatives + prompts if use_cfg else prompts, padding="max_length")
+                if has_condition:
+                    cond = image_utils.preprocess_batch(condition_image, height, width)
+                    if cond.shape[0] != batch and batch % cond.shape[0] == 0:
+                        cond = np.repeat(cond, batch // cond.shape[0], axis=0)
+                else:
+                    cond = np.zeros((batch, height, width, 3), dtype=np.float32)
+                ip_source = ip_adapter_image if ip_adapter_image is not None else condition_image
+                size = self.config.image_encoder.image_size
+                if self.config.unet.use_ip_adapter and ip_source is not None:
+                    srcs = ip_source if isinstance(ip_source, (list, tuple)) else [ip_source]
+                    clip_img = np.stack([image_utils.clip_preprocess(s, size) for s in srcs])
+                    if clip_img.shape[0] != batch and batch % clip_img.shape[0] == 0:
+                        clip_img = np.repeat(clip_img, batch // clip_img.shape[0], axis=0)
+                else:
+                    clip_img = np.zeros((batch, size, size, 3), dtype=np.float32)
+
+                parts = self._build_parts(
+                    batch, num_frames, height, width, steps, float(strength), float(guidance),
+                    use_cfg, has_condition, decode_slice, vae_tiling, unet_chunk,
+                )
+                prep_fn, decode_fn, ts = parts[0], parts[2], parts[3]
+                self.prepare_int8()  # a no-op unless a weight changed since the last call
+                n_cfg = cfg_steps(cfg_cutoff, len(ts))
+                # the kept step graphs: dropped if the UNet's weights changed, trimmed
+                # to what this request leaves beside its denoise and its decode
+                cache_bytes = self._encoder_cache_bytes(num_frames, height, width, batch, use_cfg, window)[1] \
+                    if encoder_cache > 1 else 0
+                beside_denoise, beside_decode = self._graph_rooms(
+                    concurrent_evals * tokens, cache_bytes, 0 if output_type == "latent" else decode_tokens)
+                key = None
+                if dispatch == "scan":
+                    if self._graph_weights_changed():
+                        self.release_graphs()
+                    # the bucket: what the step programs bake in as Python values
+                    # (steps and strength are not among them: t and t_prev are
+                    # device scalars), and the order the kinds are captured in
+                    # (pooled graphs replay in capture order)
+                    kinds = tuple(dict.fromkeys(step_kinds(len(ts), encoder_cache, n_cfg)))
+                    key = (batch, num_frames, height, width, float(guidance), use_cfg, has_condition, unet_chunk,
+                           encoder_cache, kinds, self.config, self.pipe_config,
+                           None if getattr(self, "mesh", None) is None else self.mesh.key())
+                    if 2 * concurrent_evals * tokens * self.EVAL_TOKEN_BYTES > beside_decode:
+                        key = None  # its pool would not fit beside its decode: captured for this call only
+                self._trim_graphs(beside_denoise, spare=key)
+                gen = torch.Generator(device=self.device).manual_seed(int(seed))
+                request.attrs["dispatch"] = dispatch
+                self._sync()
+            with tracing.span("prep"):
+                latents, consts = prep_fn(text_ids, cond, clip_img, gen, init_latents=init_latents)
+                self._sync()
             if dispatch == "scan":
-                raise ValueError("per-step callback requires stepwise dispatch (the fused scan runs "
-                                 "the whole clip as one device program); pass dispatch='stepwise' or 'auto'")
-        if num_videos_per_prompt < 1:
-            raise ValueError(f"num_videos_per_prompt must be >= 1, got {num_videos_per_prompt}")
-        pcfg = self.pipe_config
-        encoder_cache = pcfg.encoder_cache if encoder_cache is None else encoder_cache
-        cfg_cutoff = pcfg.cfg_cutoff if cfg_cutoff is None else cfg_cutoff
-        if encoder_cache not in (1, 2):
-            raise ValueError(f"encoder_cache must be 1 (off) or 2, got {encoder_cache}")
-        if not 0.0 <= cfg_cutoff <= 1.0:
-            raise ValueError(f"cfg_cutoff must be in [0, 1], got {cfg_cutoff}")
-        num_frames = num_frames or pcfg.num_frames
-        height = height or pcfg.height
-        width = width or pcfg.width
-        steps = num_inference_steps or pcfg.num_inference_steps
-        guidance = guidance_scale if guidance_scale is not None else pcfg.guidance_scale
-        strength = (
-            frame_similarity_sample_ratio if frame_similarity_sample_ratio is not None
-            else pcfg.frame_similarity_sample_ratio
-        )
-        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        use_cfg = guidance > 1.0
-        has_condition = condition_image is not None
-        if negative_prompt is None:
-            negatives = [""] * len(prompts)
-        elif isinstance(negative_prompt, str):
-            negatives = [negative_prompt] * len(prompts)
-        else:
-            negatives = list(negative_prompt)
-        # interleaved ([p0, p0, p1, p1] for N = 2), as the reference repeats
-        n = num_videos_per_prompt
-        prompts = [p for p in prompts for _ in range(n)]
-        negatives = [p for p in negatives for _ in range(n)]
-        batch = len(prompts)
-        if not use_cfg:
-            cfg_cutoff = 1.0  # guidance already off: nothing to cut
-        if encoder_cache > 1 and cfg_cutoff < 1.0:
-            raise ValueError(
-                "cfg_cutoff and encoder_cache are separate content-level approximations and are "
-                "not composed (the turbo step pair would need cond-only full/cached variants); pick one")
-
-        evals = batch * num_frames * (2 if use_cfg else 1)
-        # temporal tiling holds one anchored window of frames at a time
-        motion_cap = self.config.unet.motion_max_seq_length
-        window = min(pcfg.temporal_window, motion_cap - 1) if num_frames > motion_cap else None
-        concurrent_evals = evals if window is None else batch * (window + 1) * (2 if use_cfg else 1)
-        sf = self.config.vae.spatial_scale_factor
-        lh, lw = height // sf, width // sf
-        tokens = lh * lw
-        if unet_chunk == 0:
-            unet_chunk = 2 if evals * tokens >= self.UNET_CHUNK_AUTO_EVAL_TOKENS else 1
-        if decode_slice == 0 and batch * num_frames > 64:
-            decode_slice = 32
-        if decode_slice == 0 and tokens > 4096 and batch * num_frames > 8:
-            decode_slice = 2
-        frames = batch * num_frames
-        frames = decode_slice if 0 < decode_slice < frames and not vae_tiling else frames
-        # decode_tiled's tiles are at most 64 latents a side
-        decode_tokens = frames * (min(lh, 64) * min(lw, 64) if vae_tiling else tokens)
-        if not memory_unsafe:
-            self._check_memory_envelope(concurrent_evals, height, width, batch)
-            if encoder_cache > 1:
-                self._check_encoder_cache_budget(num_frames, height, width, batch, use_cfg, window)
+                latents = self._denoise_scan(parts, consts, latents, encoder_cache, n_cfg, gen, keep=key,
+                                             room=beside_decode, views=False)
+            else:
+                latents = self._denoise(parts, consts, latents, encoder_cache, n_cfg, gen, callback,
+                                        callback_steps, views=False)
+            out = latents
             if output_type != "latent":
-                self._check_decode_envelope(frames, decode_tokens // frames)
-        dispatch = self._resolve_dispatch(dispatch, callback, steps, batch, num_frames, window, use_cfg, tokens)
-        init_latents = None
-        if latents is not None and not has_condition:
-            lat_shape = (batch, num_frames, height // sf, width // sf, self.config.unet.in_channels)
-            init_latents = np.asarray(latents, dtype=np.float32)
-            if init_latents.shape != lat_shape:
-                raise ValueError(f"latents shape {init_latents.shape} != expected {lat_shape}")
-
-        text_ids = self.tokenizer(negatives + prompts if use_cfg else prompts, padding="max_length")
-        if has_condition:
-            cond = image_utils.preprocess_batch(condition_image, height, width)
-            if cond.shape[0] != batch and batch % cond.shape[0] == 0:
-                cond = np.repeat(cond, batch // cond.shape[0], axis=0)
-        else:
-            cond = np.zeros((batch, height, width, 3), dtype=np.float32)
-        ip_source = ip_adapter_image if ip_adapter_image is not None else condition_image
-        size = self.config.image_encoder.image_size
-        if self.config.unet.use_ip_adapter and ip_source is not None:
-            srcs = ip_source if isinstance(ip_source, (list, tuple)) else [ip_source]
-            clip_img = np.stack([image_utils.clip_preprocess(s, size) for s in srcs])
-            if clip_img.shape[0] != batch and batch % clip_img.shape[0] == 0:
-                clip_img = np.repeat(clip_img, batch // clip_img.shape[0], axis=0)
-        else:
-            clip_img = np.zeros((batch, size, size, 3), dtype=np.float32)
-
-        parts = self._build_parts(
-            batch, num_frames, height, width, steps, float(strength), float(guidance),
-            use_cfg, has_condition, decode_slice, vae_tiling, unet_chunk,
-        )
-        prep_fn, decode_fn, ts = parts[0], parts[2], parts[3]
-        self.prepare_int8()  # a no-op unless a weight changed since the last call
-        n_cfg = cfg_steps(cfg_cutoff, len(ts))
-        # the kept step graphs: dropped if the UNet's weights changed, trimmed
-        # to what this request leaves beside its denoise and its decode
-        cache_bytes = self._encoder_cache_bytes(num_frames, height, width, batch, use_cfg, window)[1] \
-            if encoder_cache > 1 else 0
-        beside_denoise, beside_decode = self._graph_rooms(
-            concurrent_evals * tokens, cache_bytes, 0 if output_type == "latent" else decode_tokens)
-        key = None
-        if dispatch == "scan":
-            if self._graph_weights_changed():
-                self.release_graphs()
-            # the bucket: what the step programs bake in as Python values
-            # (steps and strength are not among them: t and t_prev are
-            # device scalars), and the order the kinds are captured in
-            # (pooled graphs replay in capture order)
-            kinds = tuple(dict.fromkeys(step_kinds(len(ts), encoder_cache, n_cfg)))
-            key = (batch, num_frames, height, width, float(guidance), use_cfg, has_condition, unet_chunk,
-                   encoder_cache, kinds, self.config, self.pipe_config,
-                   None if getattr(self, "mesh", None) is None else self.mesh.key())
-            if 2 * concurrent_evals * tokens * self.EVAL_TOKEN_BYTES > beside_decode:
-                key = None  # its pool would not fit beside its decode: captured for this call only
-        self._trim_graphs(beside_denoise, spare=key)
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        t0 = self._sync()
-        latents, consts = prep_fn(text_ids, cond, clip_img, gen, init_latents=init_latents)
-        self.last_timings = {"prep_ms": (self._sync() - t0) * 1e3, "step_ms": []}
-        self.last_dispatch = {"dispatch": dispatch}
-        if dispatch == "scan":
-            latents = self._denoise_scan(parts, consts, latents, encoder_cache, n_cfg, gen, keep=key)
-            self._trim_graphs(beside_decode)
-            cache = self._graph_cache()
-            self.last_dispatch["graph_cache"].update(
-                kept=key in cache, entries=len(cache), pool_bytes=sum(entry.pool_bytes for entry in cache.values()))
-        else:
-            latents = self._denoise(parts, consts, latents, encoder_cache, n_cfg, gen, callback, callback_steps)
-        t1 = self._sync()
-        if output_type == "latent":
-            if has_condition:
-                latents = latents.clone()
-                latents[:, 0] = consts[0].to(latents.dtype)
-            out, what = latents.float().cpu().numpy(), "latents"
-        else:
-            video = decode_fn(consts, latents)
-            self.last_timings["decode_ms"] = (self._sync() - t1) * 1e3
-            out, what = video.cpu().numpy(), "video"
-        if not np.isfinite(out).all():
-            raise FloatingPointError(
-                f"generated {what} contain non-finite values; with the static-offset "
-                "flash softmax retry with VideoUNetConfig.flash_static_max=0.0"
-            )
-        if output_type == "np":
-            return image_utils.postprocess_video(out)
-        return out
+                with tracing.span("decode", counters=("alloc",)):
+                    out = decode_fn(consts, latents)
+                    self._sync()
+            with tracing.span("finish"):
+                if output_type == "latent" and has_condition:
+                    out = latents.clone()
+                    out[:, 0] = consts[0].to(out.dtype)
+                out = out.float().cpu().numpy()
+                if not np.isfinite(out).all():
+                    raise FloatingPointError(
+                        f"generated {'latents' if output_type == 'latent' else 'video'} contain non-finite "
+                        "values; with the static-offset flash softmax retry with "
+                        "VideoUNetConfig.flash_static_max=0.0")
+                return image_utils.postprocess_video(out) if output_type == "np" else out

@@ -51,6 +51,8 @@ import time
 import numpy as np
 import torch
 
+from i2v_adapter_tpu_torch.utils import tracing
+
 logger = logging.getLogger(__name__)
 
 
@@ -109,32 +111,44 @@ def _claim(path: str) -> str | None:
 
 def process_request(pipe, req: dict, out_prefix: str, export: bool = True) -> dict:
     """Run one request through the pipeline; returns the result record.
-    ``export=False`` (a mesh's other ranks) writes nothing."""
+    The request is a ``job`` span (``utils.tracing``) around ``load`` (the
+    image read), the pipeline's ``request`` and ``export``; the record
+    carries its id (``span_root``) and the ms of its spans summed by name
+    (``spans_ms``).  ``export=False`` (a mesh's other ranks) writes
+    nothing."""
     from i2v_adapter_tpu_torch.utils import image as image_utils
 
     t0 = time.time()
-    image = image_utils.load_image(req["image"])
-    kwargs = {k: req[k] for k in _REQUEST_KEYS if k in req}
-    video = pipe(req["prompt"], condition_image=image, seed=int(req.get("seed", 0)), **kwargs)
-    fmt = req.get("format", "gif")
-    fps = int(req.get("fps", 8))
-    if fmt not in ("gif", "mp4", "npy"):
-        raise ValueError(f"unknown format {fmt!r} (gif/mp4/npy)")
-    if not export:
-        outputs = []
-    elif fmt == "gif":
-        outputs = pipe.export_gifs(video, out_prefix, fps=fps)
-    elif fmt == "mp4":
-        outputs = [image_utils.export_to_mp4(video[i], f"{out_prefix}_{i}.mp4", fps=fps)
-                   for i in range(video.shape[0])]
-    else:
-        outputs = [out_prefix + ".npy"]
-        np.save(outputs[0], video)
+    with tracing.span("job") as job:
+        with tracing.span("load"):
+            image = image_utils.load_image(req["image"])
+        kwargs = {k: req[k] for k in _REQUEST_KEYS if k in req}
+        video = pipe(req["prompt"], condition_image=image, seed=int(req.get("seed", 0)), **kwargs)
+        fmt = req.get("format", "gif")
+        fps = int(req.get("fps", 8))
+        if fmt not in ("gif", "mp4", "npy"):
+            raise ValueError(f"unknown format {fmt!r} (gif/mp4/npy)")
+        with tracing.span("export"):
+            if not export:
+                outputs = []
+            elif fmt == "gif":
+                outputs = pipe.export_gifs(video, out_prefix, fps=fps)
+            elif fmt == "mp4":
+                outputs = [image_utils.export_to_mp4(video[i], f"{out_prefix}_{i}.mp4", fps=fps)
+                           for i in range(video.shape[0])]
+            else:
+                outputs = [out_prefix + ".npy"]
+                np.save(outputs[0], video)
+    spans_ms: dict = {}
+    for s in job.unit + [job]:
+        spans_ms[s.name] = spans_ms.get(s.name, 0.0) + s.ms
     return {
         "ok": True,
         "outputs": outputs,
         "shape": list(video.shape),
         "latency_s": round(time.time() - t0, 3),
+        "span_root": job.id,
+        "spans_ms": {name: round(ms, 3) for name, ms in spans_ms.items()},
     }
 
 

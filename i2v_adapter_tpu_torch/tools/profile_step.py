@@ -31,16 +31,24 @@ shapes (defaults, fp32, a 768-wide context): each sampler with CFG over a
 replay of its CUDA graph, as over the 1000 train timesteps), reported per
 step, and one train step of each (8 x 64x64 latents; 2 clips x 16 frames
 of 32x32), after a warm-up run of each.  Prints one JSON line per part: wall ms (synchronised), summed kernel
-ms, the device's idle share (1 - kernel / wall), kernel time by category
-and the top kernels; then the nvidia-smi name and power limit.  Needs one
-CUDA card.
+ms, the device's busy ms (the union of its kernel and copy intervals) and
+idle share (1 - busy / wall), kernel time by category, the top kernels, and
+the program's spans (``utils.tracing``; the part is a span, and the
+pipeline's or the train step's phases open inside it): each span's host and
+device ms and the counters that moved, and the device's idle time under the
+innermost span open on the host at the middle of each gap
+(``idle_under_ms``); then the nvidia-smi name and power limit.
+``--trace_dir`` keeps each part's profiler trace there with the spans merged
+in (``tracing.export_chrome``).  Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +56,7 @@ import torch
 from torch.autograd import DeviceType
 
 from i2v_adapter_tpu_torch.ops.profiling import card_line
+from i2v_adapter_tpu_torch.utils import tracing
 
 # the serving path's shape: 512px, 16 frames, CFG 7.5; 5 steps keep the
 # warm-up request short (the profiled step does not depend on the count)
@@ -101,30 +110,81 @@ def device_kernels(prof):
     return kernels, launches, host
 
 
-def profile(fn, label: str, top: int = 12) -> dict:
+def union(intervals):
+    """The union of ``(start, end)`` intervals, as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        elif b > a:
+            out.append([a, b])
+    return out
+
+
+def device_idle(events, part) -> dict:
+    """The device's busy ms inside the span ``part`` (the union of the
+    trace's kernel and copy intervals, us on the trace's axis), and its idle
+    ms under the innermost of ``part``'s spans that was open on the host at
+    the middle of each gap."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "program" and e["args"]["root"] == part.id]
+    lo, hi = next((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "program" and e["args"]["id"] == part.id)
+    busy = union((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and e["ts"] < hi
+                 and e["ts"] + e["dur"] > lo)
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    under = {}
+    for a, b in zip(edges[0::2], edges[1::2]):
+        mid = (a + b) / 2
+        name = min((s for s in spans if s[0] <= mid <= s[1]), key=lambda s: s[1] - s[0])[2]
+        under[name] = under.get(name, 0.0) + (b - a) / 1e3
+    return {"busy_ms": sum(b - a for a, b in busy) / 1e3,
+            "idle_under_ms": dict(sorted(under.items(), key=lambda kv: -kv[1]))}
+
+
+def span_table(part) -> list:
+    """``[name, host ms, device ms, counters that moved]`` of ``part``'s
+    spans, in the order they closed."""
+    return [[s.name, round(s.ms, 3), None if s.device_ms is None else round(s.device_ms, 3),
+             {k: v for k, v in s.counters.items() if v}] for s in part.unit + [part]]
+
+
+def profile(fn, label: str, top: int = 12, trace_dir=None) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with tracing.span(label) as part:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, launches, host = device_kernels(prof)
-    busy = sum(kernels.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir or tmp, f"{label}.json")
+        prof.export_chrome_trace(path)
+        tracing.export_chrome(path, merge=path, spans=part.unit + [part])
+        with open(path) as f:
+            idle = device_idle(json.load(f)["traceEvents"], part)
     cats = {}
     for name, ms in kernels.items():
         cats[category(name)] = cats.get(category(name), 0.0) + ms
     return {
         "part": label,
         "wall_ms": wall_ms,
-        "kernel_ms": busy,
-        "idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "kernel_ms": sum(kernels.values()),
+        "busy_ms": idle["busy_ms"],
+        "idle_share": 1.0 - idle["busy_ms"] / wall_ms,
         "device_kernels": launches,
         "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[k[:90], v] for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]],
         "top_host_ops_self_ms": [[k[:60], v] for k, v in sorted(host.items(), key=lambda kv: -kv[1])[:top]],
+        "spans": span_table(part),
+        "idle_under_ms": idle["idle_under_ms"],
     }
 
 
@@ -135,7 +195,7 @@ def _model_config(conv_impl: str):
     return cfg.replace(unet=cfg.unet.replace(conv_impl=conv_impl))
 
 
-def profile_train(dev, conv_impl: str) -> None:
+def profile_train(dev, conv_impl: str, trace_dir=None) -> None:
     from i2v_adapter_tpu_torch.config import reference_train_config
     from i2v_adapter_tpu_torch.training import make_train_step
     from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
@@ -145,13 +205,13 @@ def profile_train(dev, conv_impl: str) -> None:
     batch = random_train_batch(model_cfg, tcfg, dev, seed=0)
     step_fn = make_train_step(model_cfg, tcfg, device=dev)
     step_fn(state, batch)  # warm-up: cuDNN plans, kernel builds
-    line = profile(lambda: step_fn(state, batch), "train_step")
+    line = profile(lambda: step_fn(state, batch), "train_step", trace_dir=trace_dir)
     line.update(frames=tcfg.num_frames, size=tcfg.resolution, batch=tcfg.train_batch_size,
                 remat=tcfg.gradient_checkpointing, conv_impl=conv_impl)
     print(json.dumps(line), flush=True)
 
 
-def profile_latent(dev) -> None:
+def profile_latent(dev, trace_dir=None) -> None:
     from i2v_adapter_tpu_torch.models.simple import SimpleUNet, SimpleUNet3D
     from i2v_adapter_tpu_torch.training.train_latent import (
         LATENT_SCHEDULE,
@@ -182,7 +242,7 @@ def profile_latent(dev) -> None:
         for label, fn, per in ((f"{name}_sampler_step", sample, steps),
                                (f"{name}_train_step", lambda: step_fn(opt, batch, gen), 1)):
             fn()  # warm-up: cuDNN plans, kernel builds
-            line = profile(fn, label)
+            line = profile(fn, label, trace_dir=trace_dir)
             if per > 1:  # the sampler: per step of the run
                 line.update(steps=per, wall_ms=line["wall_ms"] / per, kernel_ms=line["kernel_ms"] / per,
                             device_kernels=line["device_kernels"] / per,
@@ -202,22 +262,24 @@ def main(argv=None) -> int:
                     help="profile the eager step (stepwise) or a step replayed from its CUDA graph (scan)")
     ap.add_argument("--latent", action="store_true",
                     help="profile the latent zoo's samplers and train steps")
+    ap.add_argument("--trace_dir", default=None,
+                    help="keep each part's profiler trace here, the program's spans merged in")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     if args.latent:
-        profile_latent(dev)
+        profile_latent(dev, args.trace_dir)
     elif args.train:
-        profile_train(dev, args.conv_impl)
+        profile_train(dev, args.conv_impl, args.trace_dir)
     else:
-        profile_serving(dev, args.conv_impl, args.int8, args.dispatch)
+        profile_serving(dev, args.conv_impl, args.int8, args.dispatch, args.trace_dir)
     print(card_line(dev))
     return 0
 
 
-def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "stepwise") -> None:
+def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "stepwise", trace_dir=None) -> None:
     from i2v_adapter_tpu_torch.config import PipelineConfig
     from i2v_adapter_tpu_torch.pipelines.i2v_pipeline import _scan_stream
     from i2v_adapter_tpu_torch.utils import image as image_utils
@@ -267,7 +329,7 @@ def profile_serving(dev, conv_impl: str, int8: bool = False, dispatch: str = "st
             state["video"] = decode(state["consts"], state["latents"])
 
         for label, fn in (("prep", run_prep), ("denoise_step", run_step), ("decode", run_decode)):
-            line = profile(fn, label)
+            line = profile(fn, label, trace_dir=trace_dir)
             line.update(frames=FRAMES, size=SIZE, batch=1, cfg=True, conv_impl=conv_impl, int8=int8,
                         dispatch=dispatch)
             print(json.dumps(line), flush=True)

@@ -52,6 +52,7 @@ from i2v_adapter_tpu_torch.parallel.mesh import CLIP_AXES, GRAD_AXES, SEQ_AXIS, 
 from i2v_adapter_tpu_torch.parallel.spmd import attention_spmd
 from i2v_adapter_tpu_torch.schedulers import add_noise, compute_snr, get_velocity, make_schedule
 from i2v_adapter_tpu_torch.training.state import TrainState, ema_update
+from i2v_adapter_tpu_torch.utils import tracing
 
 _COMPUTE_DTYPES = {"none": torch.float32, **DTYPES}
 
@@ -169,7 +170,17 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
     trainable gradients without updating anything (over a mesh the global
     loss and the summed gradients, blocks where the state is sharded), and
     ``step_fn.draws(state, batch, generator=None)`` the draws a step would
-    make (the global batch's)."""
+    make (the global batch's).
+
+    A call is a ``micro_step`` span (``utils.tracing``) with the children
+    ``draws``, ``conditioning`` (the VAE encode, the towers, the noise),
+    ``forward`` (the UNet and the loss), ``backward`` (the gradients, the
+    checkpointed blocks' recompute included) and ``optimizer`` (the global
+    norm, the non-finite guard, the accumulation or the update, EMA), each
+    timed on the card by a CUDA event pair on the step's stream in every
+    call (read lazily: ``Span.device_ms``, None until the end event has
+    run); ``micro_step``'s ``update`` says whether the call applies an
+    update."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     tc = train_config
     dtype = _COMPUTE_DTYPES[tc.mixed_precision]
@@ -259,7 +270,8 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
         """This rank's loss term and its gradients w.r.t. the trainable set
         (blocks reduce-scattered over ``fsdp``, not yet summed over the
         other axes)."""
-        noisy, timesteps, text_states, image_embeds, target = conditioning(state, batch, draws)
+        with tracing.span("conditioning", device_ms=True):
+            noisy, timesteps, text_states, image_embeds, target = conditioning(state, batch, draws)
         params = state.trainable_params()
         if mesh is None:
             forward = contextlib.nullcontext()
@@ -269,18 +281,20 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
         # the backward inside the context too: the blocks' activation
         # checkpointing recomputes their forward (and its collectives) there
         with forward:
-            pred = state.unet(noisy.to(dtype), timesteps, text_states, image_embeds,
-                              enable_cross_frame_attn=not is_t2i, dtype=dtype).float()
-            if clip_ways * seq_ways == 1:
-                loss = diffusion_loss(pred, target, timesteps, schedule, tc.snr_gamma,
-                                      exclude_first_frame=not is_t2i)
-            else:
-                gb, gf = global_shape(batch)
-                loss = sharded_diffusion_loss(pred, target, timesteps, schedule, tc.snr_gamma,
-                                              exclude_first_frame=not is_t2i,
-                                              holds_first_frame=holds_first_frame, clips=gb, frames=gf,
-                                              replicas=replicas)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            with tracing.span("forward", device_ms=True):
+                pred = state.unet(noisy.to(dtype), timesteps, text_states, image_embeds,
+                                  enable_cross_frame_attn=not is_t2i, dtype=dtype).float()
+                if clip_ways * seq_ways == 1:
+                    loss = diffusion_loss(pred, target, timesteps, schedule, tc.snr_gamma,
+                                          exclude_first_frame=not is_t2i)
+                else:
+                    gb, gf = global_shape(batch)
+                    loss = sharded_diffusion_loss(pred, target, timesteps, schedule, tc.snr_gamma,
+                                                  exclude_first_frame=not is_t2i,
+                                                  holds_first_frame=holds_first_frame, clips=gb, frames=gf,
+                                                  replicas=replicas)
+            with tracing.span("backward", device_ms=True):  # the checkpointed blocks' recompute included
+                grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
     def loss_and_grads(state: TrainState, batch, draws: Dict):
@@ -310,25 +324,28 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
 
     def step_fn(state: TrainState, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict] = None):
-        if draws is None:
-            draws = draws_for(state, batch, generator)
-        loss, grads = loss_and_grads(state, batch, draws)
-        params = state.trainable_params()
-
-        grad_norm = state.optimizer.global_norm(grads)
-        ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
-        grads = {n: torch.where(ok, g, torch.zeros_like(g)) for n, g in grads.items()}
-        # the clip's norm: the metric's, or the zeroed gradient's (0) on a skipped step
-        clip_norm = torch.where(ok, grad_norm, torch.zeros_like(grad_norm))
-        updates = state.optimizer.update(grads, state.opt_state, params, norm=clip_norm)
-        with torch.no_grad():
-            for n, p in params.items():
-                p.add_(torch.where(ok, updates[n], torch.zeros_like(updates[n])))
-        if state.ema is not None:
-            ema_update(state.ema, params, tc.ema_decay)
-        state.step += 1
-        return state, {"loss": loss, "grad_norm": grad_norm,
-                       "skipped_nonfinite": (~ok).to(torch.float32)}
+        opt = state.optimizer
+        with tracing.span("micro_step", update=opt.every_k <= 1 or state.opt_state.mini_step == opt.every_k - 1):
+            with tracing.span("draws", device_ms=True):
+                if draws is None:
+                    draws = draws_for(state, batch, generator)
+            loss, grads = loss_and_grads(state, batch, draws)
+            with tracing.span("optimizer", device_ms=True):
+                params = state.trainable_params()
+                grad_norm = state.optimizer.global_norm(grads)
+                ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+                grads = {n: torch.where(ok, g, torch.zeros_like(g)) for n, g in grads.items()}
+                # the clip's norm: the metric's, or the zeroed gradient's (0) on a skipped step
+                clip_norm = torch.where(ok, grad_norm, torch.zeros_like(grad_norm))
+                updates = state.optimizer.update(grads, state.opt_state, params, norm=clip_norm)
+                with torch.no_grad():
+                    for n, p in params.items():
+                        p.add_(torch.where(ok, updates[n], torch.zeros_like(updates[n])))
+                if state.ema is not None:
+                    ema_update(state.ema, params, tc.ema_decay)
+            state.step += 1
+            return state, {"loss": loss, "grad_norm": grad_norm,
+                           "skipped_nonfinite": (~ok).to(torch.float32)}
 
     step_fn.loss_and_grads = loss_and_grads
     step_fn.draws = draws_for

@@ -4,7 +4,7 @@ The port's copy of the JAX package's ``utils/metrics.py``: JSONL metrics
 (always), TensorBoard (through ``torch.utils.tensorboard``) and Weights &
 Biases when their packages import; a step timer that synchronises the card
 before it reads the clock; a ``torch.profiler`` capture of a range of steps
-written as a Chrome trace.
+written as a Chrome trace with the program's spans merged in.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import time
 from typing import Optional
 
 import torch
+
+from i2v_adapter_tpu_torch.utils import tracing
 
 
 class MetricsLogger:
@@ -124,7 +126,8 @@ class StepTimer:
 class Profiler:
     """``torch.profiler`` capture of steps ``[start_step, start_step +
     num_steps)``: call ``step(i)`` before each step; the trace is written to
-    ``log_dir/trace.json`` (Chrome trace format) when the range ends."""
+    ``log_dir/trace.json`` (Chrome trace format) when the range ends, with
+    the program's spans (``utils.tracing``) merged on its time axis."""
 
     def __init__(self, log_dir: str, start_step: int, num_steps: int):
         self.log_dir = log_dir
@@ -152,4 +155,5 @@ class Profiler:
         os.makedirs(self.log_dir, exist_ok=True)
         self.trace_path = os.path.join(self.log_dir, "trace.json")
         self._prof.export_chrome_trace(self.trace_path)
+        tracing.export_chrome(self.trace_path, merge=self.trace_path)
         self._prof = None
