@@ -230,10 +230,10 @@ PALLAS_TRAIN_STEPS = 2
 # first-step loss of the conv_impl='pallas' train run vs the 'auto' run's on
 # the same weights and draws: the two differ by bf16 rounding of 44 convs
 PALLAS_LOSS_REL_MAX = 0.02
-# the counted kernel wrappers (K1, K3, K2, K4, K7, the int8 3x3 conv and its
-# grouped weight quantiser)
+# the counted kernel wrappers (K1, K3, K2, K4, K7, the int8 3x3 conv, its
+# grouped weight quantiser and the GroupNorm kernel)
 KERNELS = ("flash_attention", "flash_attention_bwd", "temporal_attention_cs", "conv3x3_kernel",
-           "int8_matmul", "int8_conv3x3_kernel", "quantize_weights")
+           "int8_matmul", "int8_conv3x3_kernel", "quantize_weights", "group_norm_fused")
 
 
 def emit(obj) -> None:
@@ -417,6 +417,130 @@ def int8_decoder_sites(vcfg, latent: int):
     return [(h, c, co, count) for (h, c, co), count in sites.items()]
 
 
+def unet_group_norm_sites(ucfg, cached: bool = False) -> list:
+    """``[(block, kind, channels)]``: the GroupNorms of one VideoUNet
+    evaluation in the order they run (``block``: 'down<i>', 'mid', 'up<i>'
+    or 'out', the units activation checkpointing recomputes; ``kind``:
+    'resnet' for a resnet's norm1 / norm2, 'attention' for a spatial
+    transformer's, 'motion' for a motion module's, 'out' for
+    ``conv_norm_out``): 82 at SD1.5; ``cached`` leaves out the down path's
+    (52)."""
+    chans, n, layers = ucfg.block_out_channels, ucfg.num_blocks, ucfg.layers_per_block
+    sites = []
+
+    def layer(block, cin, cout, attention, motion):
+        sites.extend([(block, "resnet", cin), (block, "resnet", cout)] + [(block, "attention", cout)] * attention
+                     + [(block, "motion", cout)] * motion)
+
+    skips, cin = [chans[0]], chans[0]
+    for i in range(n):
+        for j in range(layers):
+            if not cached:
+                layer(f"down{i}", cin if j == 0 else chans[i], chans[i], ucfg.down_block_has_attention[i],
+                      ucfg.use_motion_modules)
+            skips.append(chans[i])
+        if i < n - 1:
+            skips.append(chans[i])
+        cin = chans[i]
+    layer("mid", chans[-1], chans[-1], True, ucfg.use_motion_modules and ucfg.use_motion_mid_block)
+    sites.extend([("mid", "resnet", chans[-1])] * 2)
+    x_ch = chans[-1]
+    for i, out in enumerate(reversed(chans)):
+        for j in range(layers + 1):
+            layer(f"up{i}", (x_ch if j == 0 else out) + skips.pop(), out, ucfg.up_block_has_attention[i],
+                  ucfg.use_motion_modules)
+        x_ch = out
+    return sites + [("out", "out", chans[0])]
+
+
+def _group_norm_takes(channels: int, groups: int, dtype) -> bool:
+    from i2v_adapter_tpu_torch.ops.norms import group_norm_takes
+
+    return group_norm_takes(channels, groups, dtype)
+
+
+def _unet_group_norms(ucfg, sites, dtype) -> int:
+    """The GroupNorm kernel's calls among ``sites`` of ``unet_group_norm_sites``
+    with no gradient recorded: each site whose width the kernel takes
+    (``ops.norms.group_norm_takes``), but a resnet's under
+    ``conv_impl='pallas'`` without int8, whose norm K4 takes folded
+    (``ops.norms.fold_gn_affine``)."""
+    folded = ucfg.conv_impl == "pallas" and not ucfg.int8_conv
+    return sum(not (folded and kind == "resnet") and _group_norm_takes(c, ucfg.norm_num_groups, dtype)
+               for _, kind, c in sites)
+
+
+def group_norms_per_unet_eval(ucfg, cached: bool = False, dtype=torch.bfloat16) -> int:
+    """The GroupNorm kernel's calls in one VideoUNet evaluation with no
+    gradient recorded (82 at SD1.5 in bf16, 38 with K4's folded resnet
+    norms; 52 in a ``cached`` one): whatever the batch and resolution."""
+    return _unet_group_norms(ucfg, unet_group_norm_sites(ucfg, cached), dtype)
+
+
+def vae_group_norm_sites(vcfg, part: str) -> list:
+    """The channels of each GroupNorm of one VAE ``part`` call ('encoder':
+    22 at SD1.5, 'decoder': 30), in the order they run."""
+    chans, layers = vcfg.block_out_channels, vcfg.layers_per_block
+    if part == "encoder":
+        sites, cin = [], chans[0]
+        for ch in chans:
+            for _ in range(layers):
+                sites += [cin, ch]
+                cin = ch
+        return sites + [chans[-1]] * 6  # mid resnets, mid attention, conv_norm_out
+    rev = tuple(reversed(chans))
+    sites, cin = [rev[0]] * 5, rev[0]  # mid resnets and attention
+    for ch in rev:
+        for _ in range(layers + 1):
+            sites += [cin, ch]
+            cin = ch
+    return sites + [rev[-1]]
+
+
+def group_norms_per_vae_call(vcfg, part: str, dtype=torch.bfloat16) -> int:
+    """The GroupNorm kernel's calls in one VAE encoder or decoder call with
+    no gradient recorded (one decoder call per tile or slice)."""
+    return sum(_group_norm_takes(c, vcfg.norm_num_groups, dtype) for c in vae_group_norm_sites(vcfg, part))
+
+
+def group_norms_per_request(model_cfg, evals: int, cached_evals: int = 0, decode_calls: int = 1) -> int:
+    """The GroupNorm kernel's calls in one bf16 serving request: its UNet
+    evaluations (``cached_evals`` of them from cached down-path features),
+    the condition image's one encoder call and ``decode_calls`` decoder
+    calls."""
+    return (evals * group_norms_per_unet_eval(model_cfg.unet)
+            + cached_evals * group_norms_per_unet_eval(model_cfg.unet, cached=True)
+            + group_norms_per_vae_call(model_cfg.vae, "encoder")
+            + decode_calls * group_norms_per_vae_call(model_cfg.vae, "decoder"))
+
+
+def group_norms_per_train_step(model_cfg, tcfg, images: int) -> int:
+    """The GroupNorm kernel's calls in one train step on ``images`` frames:
+    the conditioning's VAE encode under no grad (one encoder call, or one a
+    ``vae_encode_slice`` of the frames), then, under autograd, the UNet's
+    norms that run before the first trainable one: in i2v mode those ahead
+    of the first adapter (a spatial transformer's norm runs before its
+    adapter) or of a trained motion module, with frozen weights and an input
+    that carries no gradient (3 at SD1.5: the first resnet's two and the
+    first transformer's); again in the backward's recompute of the block
+    that holds the first trainable module, under activation checkpointing
+    (the blocks ahead of it record nothing, so nothing recomputes them).  In
+    t2i mode every UNet weight trains: none."""
+    ucfg, dtype = model_cfg.unet, torch.bfloat16 if tcfg.mixed_precision == "bfloat16" else torch.float32
+    s = tcfg.vae_encode_slice
+    encodes = images // s if 0 < s < images and images % s == 0 else 1
+    count = encodes * group_norms_per_vae_call(model_cfg.vae, "encoder", dtype)
+    if tcfg.train_mode == "t2i":
+        return count
+    sites = unet_group_norm_sites(ucfg)
+    first = next(i for i, (_, kind, _) in enumerate(sites) if (kind == "attention" and ucfg.use_i2v_adapter)
+                 or (kind == "motion" and tcfg.update_motion_modules) or kind == "out")
+    lead = sites[:first + int(sites[first][1] == "attention")]
+    block = [site for site in lead if site[0] == sites[first][0] != "out"]
+    recompute = _unet_group_norms(ucfg, block, dtype) if tcfg.gradient_checkpointing else 0
+    return count + _unet_group_norms(ucfg, lead, dtype) + recompute
+
+
 def clip_denoise_steps(steps: int = 25, strength: float = 0.9) -> int:
     """Denoise steps of a serving clip (BASELINE config 2: 25 DDIM steps cut
     by strength 0.9)."""
@@ -465,7 +589,8 @@ def request_launches(model_cfg, latent: int, steps: int, *, ip_tokens: int = 0, 
     per evaluation do not depend on its batch, so a cond-only step counts
     as a CFG one); under ``encoder_cache=2`` every second step of the
     leading pairs is a cached evaluation; then ``decode_calls`` decoder
-    calls (slices or tiles; 0 for latents)."""
+    calls (slices or tiles; 0 for latents); the GroupNorm kernel also in
+    the condition image's encode (``group_norms_per_request``)."""
     cached = steps // 2 if encoder_cache > 1 else 0
     full = steps - cached
     counts = {}
@@ -480,6 +605,7 @@ def request_launches(model_cfg, latent: int, steps: int, *, ip_tokens: int = 0, 
     if int8:
         for k, v in int8_launches(model_cfg, latent)["per_decode"].items():
             counts[k] = counts.get(k, 0) + decode_calls * v
+    counts["group_norm_fused"] = group_norms_per_request(model_cfg, full * windows, cached * windows, decode_calls)
     return expected_counts(**counts)
 
 
@@ -489,15 +615,17 @@ def conv_launches_per_unet_eval(ucfg) -> int:
     return sum(count for *_, count in conv_sites(ucfg, 64))
 
 
-def launches_per_train_step(ucfg, latent: int, tcfg, min_nk: int = 1024) -> dict:
-    """Kernel launches of one train step: K1 and K2 at every site of the
-    forward, again in the backward's recompute under activation
-    checkpointing; K3 at every flash site with ``nk >= min_nk`` whose
-    inputs carry a gradient; K4 twice per resnet conv under
-    ``conv_impl='pallas'`` (its backward is plain).  In i2v mode the first transformer block's
-    self-attention sees frozen weights only (nothing trainable runs before
-    it unless motion modules train and precede it), so its backward is
-    never taken."""
+def launches_per_train_step(model_cfg, latent: int, tcfg, min_nk: int = 1024) -> dict:
+    """Kernel launches of one train step on ``tcfg``'s batch: K1 and K2 at
+    every site of the forward, again in the backward's recompute under
+    activation checkpointing; K3 at every flash site with ``nk >= min_nk``
+    whose inputs carry a gradient; K4 twice per resnet conv under
+    ``conv_impl='pallas'`` (its backward is plain); the GroupNorm kernel as
+    ``group_norms_per_train_step`` counts it.  In i2v mode the first
+    transformer block's self-attention sees frozen weights only (nothing
+    trainable runs before it unless motion modules train and precede it),
+    so its backward is never taken."""
+    ucfg = model_cfg.unet
     cross_frame = tcfg.train_mode != "t2i"
     flash, temporal = launches_per_unet_eval(ucfg, latent, cross_frame)
     bwd = launches_per_unet_eval(ucfg, latent, cross_frame, flash_min=min_nk)[0]
@@ -507,9 +635,11 @@ def launches_per_train_step(ucfg, latent: int, tcfg, min_nk: int = 1024) -> dict
     if tcfg.train_mode == "i2v" and not motion_before and (latent >> first) ** 2 >= min_nk:
         bwd -= 1
     recompute = 2 if tcfg.gradient_checkpointing else 1
+    images = tcfg.train_batch_size * (1 if tcfg.train_mode == "t2i" else tcfg.num_frames)
     return {"flash_attention": recompute * flash, "flash_attention_bwd": bwd,
             "temporal_attention_cs": recompute * temporal,
-            "conv3x3_kernel": recompute * conv_launches_per_unet_eval(ucfg)}
+            "conv3x3_kernel": recompute * conv_launches_per_unet_eval(ucfg),
+            "group_norm_fused": group_norms_per_train_step(model_cfg, tcfg, images)}
 
 
 # the latent phase: the zoo at its defaults, 2 clips x 16 frames of 256 px
@@ -561,6 +691,16 @@ def launches_per_simple_eval(zoo: dict, latent: int, **kwargs) -> dict:
     for (kernel, *_), count in simple_eval_sites(zoo, latent, **kwargs).items():
         out[kernel] += count
     return out
+
+
+def module_group_norms(model: torch.nn.Module, dtype=torch.float32) -> int:
+    """The GroupNorm kernel's calls in one forward with no gradient recorded
+    of a model that runs each of its ``GroupNorm`` modules once (the zoo's
+    UNets, the dome): every module whose width the kernel takes."""
+    from i2v_adapter_tpu_torch.models.layers import GroupNorm
+
+    return sum(_group_norm_takes(m.weight.numel(), m.num_groups, dtype)
+               for m in model.modules() if isinstance(m, GroupNorm))
 
 
 def latent_run_launches(zoo: dict, steps: int, timesteps: int) -> dict:
@@ -627,7 +767,8 @@ def phase_build(rehearse: bool) -> None:
     name = re.compile(r"(flash_fwd_wgmma_kernel|flash_fwd_kernel|temporal_mma_kernel|temporal_fwd_kernel"
                       r"|bwd_dq_wgmma_kernel|bwd_dkv_wgmma_kernel|bwd_dq_mma_kernel|bwd_dkv_mma_kernel"
                       r"|bwd_dq_kernel|bwd_dkv_kernel|bwd_prep_kernel|int8_conv3x3_wgmma_kernel"
-                      r"|int8_mm_wgmma_kernel|conv3x3_wgmma_kernel|conv3x3_f32_kernel)I(\w*?)EE")
+                      r"|int8_mm_wgmma_kernel|conv3x3_wgmma_kernel|conv3x3_f32_kernel"
+                      r"|group_norm_stats_kernel|group_norm_apply_kernel)I(\w*?)EE")
     for r in report.values():
         for ln in r["ptxas"].splitlines():
             m = name.search(ln)
@@ -636,6 +777,11 @@ def phase_build(rehearse: bool) -> None:
                 injected[key] = injected.get(key, 0) + 1
             elif m:
                 kernel = f"{m[1]}<{m[2].replace('13__nv_bfloat16', 'bf16')}>"
+            elif "Compiling entry function" in ln or "Function properties for" in ln:
+                # a kernel the names above do not know: its own symbol, so
+                # that its report is not charged to the kernel before it
+                symbol = re.search(r"_Z\w+", ln)
+                kernel = symbol[0] if symbol else "?"
             elif "spill" in ln or "Used" in ln:
                 lines.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
                 counts = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
@@ -1030,6 +1176,97 @@ def _int8_conv_case(name, b, h, w, c, co, dev, iters, clip_weight, eval_weight=0
     return row, row["equal_int32"] and row["within_bf16_rounding"]
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 2.0 ** -12) -> float:
+    """The largest |got - want| in bf16 ulps of ``want``, each ulp taken at
+    least at ``floor`` of max |want|: a GroupNorm output near 0 differs by
+    the statistics' fp32 rounding, which is absolute, not relative to it."""
+    got, want = got.float(), want.float()
+    mag = torch.clamp_min(want.abs(), float(want.abs().max()) * floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+# GroupNorm sites: (name, samples, positions, channels, groups, dtype, eps,
+# the resnets' SiLU and abs-max).  A 512 px, 16-frame CFG clip's in bf16 with
+# 32 groups; the latent zoo's samplers (CFG-doubled 32x32 latents, 16 frames
+# for SimpleUNet3D, its time stack over (F, H, W) per clip) with 8 groups and
+# the dome's (8 images of 64x64) with 1, in fp32
+GROUP_NORM_CASES = [
+    ("unet resnet H64 C320", 32, 4096, 320, 32, torch.bfloat16, 1e-5, True),
+    ("unet transformer H64 C320", 32, 4096, 320, 32, torch.bfloat16, 1e-6, False),
+    ("motion H64 C320", 2, 16 * 4096, 320, 32, torch.bfloat16, 1e-6, False),
+    ("unet resnet H32 C640", 32, 1024, 640, 32, torch.bfloat16, 1e-5, True),
+    ("unet resnet H16 C2560", 32, 256, 2560, 32, torch.bfloat16, 1e-5, True),
+    ("unet resnet H8 C1280", 32, 64, 1280, 32, torch.bfloat16, 1e-5, True),
+    ("motion H8 C1280", 2, 16 * 64, 1280, 32, torch.bfloat16, 1e-6, False),
+    ("decoder H512 C128", 16, 512 * 512, 128, 32, torch.bfloat16, 1e-6, True),
+    ("decoder H256 C256", 16, 256 * 256, 256, 32, torch.bfloat16, 1e-6, True),
+    ("zoo image H32 C64", 2, 1024, 64, 8, torch.float32, 1e-6, False),
+    ("zoo image up H32 C192", 2, 1024, 192, 8, torch.float32, 1e-6, False),
+    ("zoo video H32 C64", 32, 1024, 64, 8, torch.float32, 1e-6, False),
+    ("zoo video time stack H16 C128", 2, 16 * 256, 128, 8, torch.float32, 1e-6, False),
+    ("zoo video up H8 C512", 32, 64, 512, 8, torch.float32, 1e-6, False),
+    ("dome H64 C64", 8, 4096, 64, 1, torch.float32, 1e-6, False),
+    ("dome H16 C256", 8, 256, 256, 1, torch.float32, 1e-6, False),
+    ("dome H8 C512", 8, 64, 512, 1, torch.float32, 1e-6, False),
+]
+
+
+def _group_norm_case(name, n, rows, c, groups, dtype, eps, silu, dev, iters):
+    """One GroupNorm site: the kernel (``ops.norms.group_norm_fused``) against
+    the composition (``ops.norms.group_norm_plain``) on the same inputs:
+    within 2 bf16 ulps in bf16 (``bf16_ulps``), within 4e-6 of max |out| in
+    fp32 (the statistics' summation order); with ``silu`` its SiLU equal bit
+    for bit to ``F.silu`` of its own plain output and its abs-max to ``max
+    |out|`` (so the int8 scale is ``activation_scale``'s).  Times: the
+    kernel (with SiLU and abs-max where ``silu``, as the resnets call it),
+    the sequence it replaces (the composition, then ``F.silu`` and the int8
+    conv's ``aminmax`` scale), and ``F.group_norm`` on the channels-last
+    NCHW view (``library_ms``).  The bound: the function's bytes, x read
+    once and out written once; ``two_pass_bound_ms``: the kernel's design,
+    which reads x twice."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.ops import int8 as I8
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    g = torch.Generator(device=dev).manual_seed(n * 7 + rows + c + groups)
+    spread = 0.5 + 2 * torch.rand(c, generator=g, device=dev)
+    x = (torch.randn(n, rows, c, generator=g, device=dev) * spread
+         + torch.randn(c, generator=g, device=dev)).to(dtype)
+    w = (1 + 0.2 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    b = (0.2 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    got = N.group_norm_fused(x, groups, eps, w, b)
+    want = N.group_norm_plain(x, groups, eps, w, b)
+    row = {"name": name, "n": n, "rows": rows, "c": c, "groups": groups, "dtype": str(dtype), "eps": eps,
+           "silu_absmax": silu, "abs_err": abs_err(got, want)}
+    if dtype == torch.bfloat16:
+        row["ulps"] = bf16_ulps(got, want)
+        ok = row["ulps"] <= 2
+    else:
+        row["rel_err"] = row["abs_err"] / float(want.abs().max())
+        ok = row["rel_err"] <= 4e-6
+    if silu:
+        act, peak = N.group_norm_fused(x, groups, eps, w, b, silu=True, absmax=True)
+        row["silu_equal"] = bool(torch.equal(act, F.silu(got)))
+        row["absmax_equal"] = bool(torch.equal(peak, act.float().abs().amax())
+                                   and torch.equal(I8.absmax_scale(peak), I8.activation_scale(act)))
+        ok = ok and row["silu_equal"] and row["absmax_equal"]
+    del got, want
+    row["ms"] = device_ms(lambda: N.group_norm_fused(x, groups, eps, w, b, silu=silu, absmax=silu), iters)
+    if silu:
+        row["plain_ms"] = device_ms(lambda: I8.activation_scale(N.group_norm_plain(x, groups, eps, w, b, True)),
+                                    iters)
+    else:
+        row["plain_ms"] = device_ms(lambda: N.group_norm_plain(x, groups, eps, w, b), iters)
+    nchw = x.view(n, rows, 1, c).permute(0, 3, 1, 2)
+    row["library_ms"] = device_ms(lambda: F.group_norm(nchw, groups, w, b, eps), iters)
+    row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2.0 * x.numel() * x.element_size(), PEAK_BF16_FLOPS)
+    row["two_pass_bound_ms"] = bound_ms(0.0, 3.0 * x.numel() * x.element_size(), PEAK_BF16_FLOPS)[0]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row, ok
+
+
 def _quantize_weights_case(name, shapes, dev, iters, load_weight):
     """The grouped weight quantiser on bf16 OIHW parameters of ``shapes``
     ((C, Cout) per int8 site, as the serving pipeline stores them), all in
@@ -1292,6 +1529,8 @@ def phase_kernels(dev, rehearse: bool):
         "int8 conv ")
     add("int8_conv3x3_kernel", _int8_conv_case("wide strips 1x6x300 64->136", 1, 6, 300, 64, 136, dev,
                                                5, 0), "int8 conv ")
+    for case in GROUP_NORM_CASES:
+        add("group_norm_fused", _group_norm_case(*case, dev=dev, iters=10), "group norm ")
     for case in row_major_cases:
         add("flash_attention_row_major",
             _flash_case(*case[:-1], dev=dev, iters=5, weight=case[-1], row_major=True), "row-major ")
@@ -1450,8 +1689,10 @@ def phase_unet(model_cfg, dev, dtype, rehearse: bool):
     db_forced = psnr(got_forced.cpu().numpy(), got.cpu().numpy())
     flash, temporal_auto = launches_per_unet_eval(ucfg, lat, True)
     temporal_all = launches_per_unet_eval(ucfg, lat, True, temporal_min=0)[1]
-    expected = expected_counts(flash_attention=flash, temporal_attention_cs=temporal_auto)
-    expected_fused = dict(expected, conv3x3_kernel=conv_launches_per_unet_eval(fused_cfg))
+    expected = expected_counts(flash_attention=flash, temporal_attention_cs=temporal_auto,
+                               group_norm_fused=group_norms_per_unet_eval(ucfg, dtype=dtype))
+    expected_fused = dict(expected, conv3x3_kernel=conv_launches_per_unet_eval(fused_cfg),
+                          group_norm_fused=group_norms_per_unet_eval(fused_cfg, dtype=dtype))
     expected_forced = dict(expected, temporal_attention_cs=temporal_all)
     expected_int8 = dict(expected, **int8_launches(model_cfg, lat)["per_eval"])
     if rehearse:
@@ -1552,7 +1793,8 @@ def phase_pipeline(model_cfg, unet, fused_unet, dev, dtype, rehearse: bool):
         evals = sum(len(r["timings"]["step_ms"]) for r in requests)
         expected = expected_counts(
             flash_attention=evals * per_eval[0], temporal_attention_cs=evals * per_eval[1],
-            conv3x3_kernel=evals * conv_launches_per_unet_eval(p.config.unet))
+            conv3x3_kernel=evals * conv_launches_per_unet_eval(p.config.unet),
+            group_norm_fused=sum(group_norms_per_request(p.config, len(r["timings"]["step_ms"])) for r in requests))
         if rehearse:
             expected = expected_counts()
         return requests, counts, expected
@@ -1632,13 +1874,21 @@ def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, 
     per_step = {k: runs["latent"]["launches"][k] / n_steps for k in derived["per_eval"]}
     per_decode = {k: runs["np"]["launches"][k] - runs["latent"]["launches"][k] for k in derived["per_decode"]}
     want_step, want_decode = derived["per_eval"], derived["per_decode"]
+    # the GroupNorm kernel: the latent call's steps and encode, the decode's
+    group_norms = {"latent": runs["latent"]["launches"]["group_norm_fused"],
+                   "decode": runs["np"]["launches"]["group_norm_fused"] - runs["latent"]["launches"]["group_norm_fused"]}
+    want_group_norms = {"latent": group_norms_per_request(model_cfg, n_steps, decode_calls=0),
+                        "decode": group_norms_per_vae_call(model_cfg.vae, "decoder")}
     if rehearse:
         want_step = want_decode = {k: 0 for k in derived["per_eval"]}
+        want_group_norms = {k: 0 for k in group_norms}
     failed = []
     if per_step != {k: float(v) for k, v in want_step.items()}:
         failed.append(f"launches per step {per_step} != {want_step}")
     if per_decode != want_decode:
         failed.append(f"launches per decode {per_decode} != {want_decode}")
+    if group_norms != want_group_norms:
+        failed.append(f"GroupNorm kernel launches {group_norms} != {want_group_norms}")
     if runs["np"]["shape"] != [1, frames, size, size, 3] or runs["np"]["dtype"] != "uint8":
         failed.append(f"output {runs['np']['shape']} {runs['np']['dtype']}")
     if runs["latent"]["shape"] != [1, frames, latent, latent, model_cfg.unet.in_channels]:
@@ -1654,6 +1904,7 @@ def _serve_int8(model_cfg, pipe, image, exact, size, frames, steps, dtype, dev, 
         "latent_call": {k: v for k, v in runs["latent"].items() if k != "out"},
         "launches_per_step": per_step, "launches_per_decode": per_decode,
         "expected_per_step": want_step, "expected_per_decode": want_decode,
+        "group_norm_launches": group_norms, "expected_group_norm_launches": want_group_norms,
         "psnr_db_vs_exact_convs": psnr(runs["np"]["out"], exact["video"]),
         "finite_latents": bool(np.isfinite(runs["latent"]["out"]).all()),
         "failed": failed,
@@ -1846,7 +2097,9 @@ def phase_scan(model_cfg, pipe, fused_unet, dev, rehearse: bool):
                        lambda n: request_launches(model_cfg, latent, n, windows=windows, decode_calls=0), "latent"),
         "pallas_five_steps": (fused, dict(seed=1, num_inference_steps=5),
                               lambda n: expected_counts(flash_attention=n * flash, temporal_attention_cs=n * temporal,
-                                                        conv3x3_kernel=n * conv_launches_per_unet_eval(fused_cfg.unet)),
+                                                        conv3x3_kernel=n * conv_launches_per_unet_eval(fused_cfg.unet),
+                                                        group_norm_fused=group_norms_per_request(fused_cfg, n,
+                                                                                                 decode_calls=0)),
                               "latent"),
     }
 
@@ -2469,7 +2722,8 @@ def _tiled_decode(pipe, model_cfg, dev, rehearse: bool) -> dict:
         t2 = time.perf_counter()
         counts = launch_counts()
     n_tiles = len(range(0, max(lat - tile // 4, 1), tile * 3 // 4)) ** 2
-    per_decode = int8_launches(model_cfg, lat)["per_decode"]
+    per_decode = dict(int8_launches(model_cfg, lat)["per_decode"],
+                      group_norm_fused=group_norms_per_vae_call(model_cfg.vae, "decoder"))
     expected = expected_counts() if rehearse else expected_counts(
         **{k: n_tiles * v for k, v in per_decode.items()})
     finite = bool(torch.isfinite(tiled).all())
@@ -2579,7 +2833,8 @@ def phase_cli(model_cfg, dev, rehearse: bool, ckpt: dict):
     flash, temporal = launches_per_unet_eval(model_cfg.unet, latent, True)
     steps = clip_denoise_steps(5, 0.9)
     expected = expected_counts() if rehearse else expected_counts(
-        flash_attention=steps * flash, temporal_attention_cs=steps * temporal)
+        flash_attention=steps * flash, temporal_attention_cs=steps * temporal,
+        group_norm_fused=group_norms_per_request(model_cfg, steps))
     gif_frames = None
     if len(written) == 1 and os.path.exists(written[0]):
         with Image.open(written[0]) as im:
@@ -2619,7 +2874,10 @@ def mesh_launches_per_eval(model_cfg, latent: int, mesh: tuple, frames: int) -> 
     """One rank's kernel launches for one meshed UNet evaluation (CFG, one
     clip): K1 as on one card (each site runs once on the rank's slab), K2 at
     the motion modules whose local token count (S / seq when the frames and
-    the tokens split, else S) reaches 128, the int8 sites as on one card."""
+    the tokens split, else S) reaches 128, the int8 sites as on one card,
+    the GroupNorm kernel at every site but the motion modules' when ``seq``
+    splits the frames (``parallel.spmd.motion_group_norm`` sums over the
+    ranks)."""
     ucfg = model_cfg.unet
     flash, _ = launches_per_unet_eval(ucfg, latent, True)
     s = mesh[2]
@@ -2634,8 +2892,10 @@ def mesh_launches_per_eval(model_cfg, latent: int, mesh: tuple, frames: int) -> 
         local = tokens // s if split and tokens % s == 0 else tokens
         temporal += 2 * layers if motion and local >= 128 else 0
     int8 = int8_launches(model_cfg, latent)["per_eval"]
+    sites = [site for site in unet_group_norm_sites(ucfg) if s == 1 or site[1] != "motion"]
     return expected_counts(flash_attention=flash, temporal_attention_cs=temporal,
-                           int8_conv3x3_kernel=int8["int8_conv3x3_kernel"], int8_matmul=int8["int8_matmul"])
+                           int8_conv3x3_kernel=int8["int8_conv3x3_kernel"], int8_matmul=int8["int8_matmul"],
+                           group_norm_fused=_unet_group_norms(ucfg.replace(int8_conv=True), sites, torch.bfloat16))
 
 
 def _mesh_rank(meshes, model_cfg, size: int, frames: int, rehearse: bool) -> dict:
@@ -2717,17 +2977,17 @@ def _mesh_rank(meshes, model_cfg, size: int, frames: int, rehearse: bool) -> dic
         calls = collectives.calls
         got_eval = evaluation(mesh)
         sync()
-        eval_launches, eval_calls = launches.snapshot(), collectives.calls - calls
+        eval_launches, eval_calls = launch_counts(), collectives.calls - calls
         step_audit = audit_step(pipe, size, frames)
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         launches.reset()
         _, first_s = clip()
-        first_launches = launches.snapshot()
+        first_launches = launch_counts()
         launches.reset()
         got_clip, latency_s = clip()
-        clip_launches = launches.snapshot()
+        clip_launches = launch_counts()
         timing = timings()
         got_latents = clip("latent")[0]
         exact_eval, exact_clip = exact(lambda: (evaluation(mesh), clip()[0]))
@@ -2808,7 +3068,9 @@ def phase_mesh(model_cfg, dev, rehearse: bool, ckpt: dict):
                      device="cpu" if rehearse else None, timeout=MESH_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     steps = clip_denoise_steps(MESH_STEPS)
-    decode = expected_counts(**int8_launches(model_cfg, latent)["per_decode"])
+    # each rank's prep (the condition image's encode) and decode call
+    decode = expected_counts(**int8_launches(model_cfg, latent)["per_decode"],
+                             group_norm_fused=group_norms_per_request(model_cfg, 0))
     failed, lines = [], []
     for i, sizes in enumerate(meshes):
         per = [r["meshes"][i] for r in recs]
@@ -2889,13 +3151,15 @@ def mesh_train_cases(cards: int, rehearse: bool) -> list:
     return [("1,1,1,1", (1, 1, 1, 1), "shard", 256, 2, False)]
 
 
-def mesh_train_launches_per_step(ucfg, latent: int, tcfg, seq: int) -> dict:
-    """One rank's kernel launches for one meshed train step: K1 and K3 as on
-    one card (each site runs once on the rank's slab; the key counts are
-    the spatial tokens, which no axis splits), K2 at the motion modules
-    whose local token count (S / seq when the frames and the tokens split,
-    else S) reaches 128, in the forward and its recompute."""
-    per = dict(launches_per_train_step(ucfg, latent, tcfg))
+def mesh_train_launches_per_step(model_cfg, latent: int, tcfg, seq: int) -> dict:
+    """One rank's kernel launches for one meshed train step: K1, K3 and the
+    GroupNorm kernel as on one card (each site runs once on the rank's
+    slab; the key counts are the spatial tokens, which no axis splits; the
+    motion norms, which ``seq`` splits, carry gradients), K2 at the motion
+    modules whose local token count (S / seq when the frames and the tokens
+    split, else S) reaches 128, in the forward and its recompute."""
+    ucfg = model_cfg.unet
+    per = dict(launches_per_train_step(model_cfg, latent, tcfg))
     split = seq > 1 and tcfg.num_frames % seq == 0
     n = ucfg.num_blocks
     levels = [(latent >> i, ucfg.layers_per_block, ucfg.use_motion_modules) for i in range(n)]
@@ -3035,7 +3299,7 @@ def _mesh_train_rank(cases, model_cfg, rehearse: bool) -> list:
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(m["loss"])
-        rec["launches"] = launches.snapshot()
+        rec["launches"] = launch_counts()
         rec["steps"] = steps
         rec["step_ms"] = step_ms
         rec["losses"] = [float(x) for x in losses]
@@ -3090,7 +3354,7 @@ def phase_mesh_train(model_cfg, dev, rehearse: bool):
         m = dict(per[0])
         tc = _mesh_train_config(case, rehearse)
         latent = tc.resolution // model_cfg.vae.spatial_scale_factor
-        per_step = mesh_train_launches_per_step(model_cfg.unet, latent, tc, case[1][3])
+        per_step = mesh_train_launches_per_step(model_cfg, latent, tc, case[1][3])
         want = expected_counts(**{k: 0 if rehearse else m["steps"] * v for k, v in per_step.items()})
         m.update(launches_per_rank=[r["launches"] for r in per], expected_launches=want,
                  launches_per_step=per_step, peak_gb_per_rank=[r["peak_gb"] for r in per],
@@ -3318,11 +3582,11 @@ def phase_driver(model_cfg, dev, rehearse: bool, ckpt: dict):
                     "--checkpoint_epoch", "1"]
     latent = size // model_cfg.vae.spatial_scale_factor
     zero = expected_counts()
-    want_i2v = zero if rehearse else expected_counts(**launches_per_train_step(model_cfg.unet, latent, tcfg))
+    want_i2v = zero if rehearse else expected_counts(**launches_per_train_step(model_cfg, latent, tcfg))
     t2i_cfg = model_cfg.replace(unet=model_cfg.unet.replace(
         use_motion_modules=False, use_i2v_adapter=False, use_ip_adapter=False))
     want_t2i = zero if rehearse else expected_counts(**launches_per_train_step(
-        t2i_cfg.unet, latent, tcfg.replace(train_mode="t2i")))
+        t2i_cfg, latent, tcfg.replace(train_mode="t2i")))
 
     per_step, snapshots, checks, failed = [], {}, {}, []
     with _driver_probes(per_step, snapshots, checks):
@@ -3460,7 +3724,9 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
     for bit; one SimpleUNetDome forward at (8, 64, 64, 3); each
     trained UNet's checkpoint written, read into a fresh model and compared
     bit for bit.  Every step's, sampler's and forward's K1 / K3 launches are
-    held to ``launches_per_simple_eval``, no other kernel launching; the
+    held to ``launches_per_simple_eval``, the GroupNorm kernel's to
+    ``module_group_norms`` (the samplers and the dome: no gradient; none in
+    the steps, where every weight trains), no other kernel launching; the
     losses finite, every parameter moved, the samples finite.  Returns the
     phase's launches (the steps, samplers and dome)."""
     from i2v_adapter_tpu_torch.data.latent import LatentImageDataset, LatentVideoDataset
@@ -3565,7 +3831,8 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
         return sum(not torch.equal(p.detach(), start[n]) for n, p in model.named_parameters())
 
     def held(name, runs, per_run):
-        """Each run's launches against the derivation (K1 / K3 only)."""
+        """Each run's launches against the derivation (K1 / K3 and the
+        GroupNorm kernel)."""
         want = expected_counts(**({} if rehearse else per_run))
         bad = [r["launches"] for r in runs if r["launches"] != want]
         if bad:
@@ -3613,7 +3880,8 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
         x = sample_latents(model, shape, torch.Generator(device=dev).manual_seed(20 + i), **kw)
         sync()
         seconds = time.perf_counter() - t0
-        per_step = launches_per_simple_eval(zoo, video_lat, video=name == "video", frames=frames)
+        per_step = dict(launches_per_simple_eval(zoo, video_lat, video=name == "video", frames=frames),
+                        group_norm_fused=module_group_norms(model))
         want = held(f"{name} sampler", [{"launches": launch_counts()}],
                     {k: timesteps * v for k, v in per_step.items()})
         t0 = time.perf_counter()
@@ -3644,7 +3912,7 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
         yd = dome(xd, td)
         sync()
         dome_ms = (time.perf_counter() - t0) * 1e3
-    held("dome forward", [{"launches": launch_counts()}], {})
+    held("dome forward", [{"launches": launch_counts()}], {"group_norm_fused": module_group_norms(dome)})
     if tuple(yd.shape) != (dome_batch, 64, 64, 3) or not bool(torch.isfinite(yd).all()):
         failed.append(f"dome output {tuple(yd.shape)} finite={bool(torch.isfinite(yd).all())}")
 
@@ -3669,6 +3937,8 @@ def phase_latent(model_cfg, dev, rehearse: bool, ckpt: dict) -> dict:
     if not rehearse:
         for (kernel, *_), count in latent_run_launches(zoo, steps, timesteps).items():
             want_total[kernel] += count
+        # the samplers' norms (the steps record gradients of every weight)
+        want_total["group_norm_fused"] = timesteps * (module_group_norms(unet2d) + module_group_norms(unet3d))
     if total != want_total:
         failed.append(f"phase launches {total} != {want_total}")
     summary_ms = lambda rs: {"warmup_ms": rs[0]["ms"], "step_ms": [r["ms"] for r in rs[1:]],  # noqa: E731
@@ -3769,7 +4039,8 @@ def phase_profilers(model_cfg, dev, rehearse: bool) -> None:
         flash, temporal = (0, 0) if sdpa else launches_per_unet_eval(ucfg, lat, ucfg.use_i2v_adapter)
         want = expected_counts() if rehearse else expected_counts(
             flash_attention=flash, temporal_attention_cs=temporal,
-            conv3x3_kernel=conv_launches_per_unet_eval(ucfg) if ucfg.conv_impl == "pallas" else 0)
+            conv3x3_kernel=conv_launches_per_unet_eval(ucfg) if ucfg.conv_impl == "pallas" else 0,
+            group_norm_fused=group_norms_per_unet_eval(ucfg))
         line["profile_unet"][r["variant"]] = {"per_eval_ms": r["per_eval_ms"], "launches_per_eval":
                                               r["launches_per_eval"], "expected": want}
         if r["launches_per_eval"] != want or not r["finite"] or (not rehearse and not r["per_eval_ms"]):
@@ -3777,9 +4048,11 @@ def phase_profilers(model_cfg, dev, rehearse: bool) -> None:
     if len(records["profile_unet"]) != len(variants):
         failed.append(f"profile_unet: {len(records['profile_unet'])} records for {len(variants)} variants")
 
-    # profile_motion: K2 where S >= 128 under 'auto', K6 at every S
+    # profile_motion: K2 where S >= 128 under 'auto', K6 at every S; the
+    # GroupNorm kernel in the two variants with the motion module's norm
     line["profile_motion"] = []
     per_kernel = {"full_motion_module": 2, "temporal_attn_k2": 1, "temporal_attn_k6": 1}
+    normed = ("full_motion_module", "groupnorm_only")
     for r in records["profile_motion"]:
         line["profile_motion"].append({k: r.get(k) for k in ("variant", "side", "channels", "decode_slice", "ms")})
         if r["variant"] == "vae_decode":
@@ -3788,7 +4061,9 @@ def phase_profilers(model_cfg, dev, rehearse: bool) -> None:
             n = per_kernel.get(r["variant"], 0)
             if r["variant"] != "temporal_attn_k6" and r["tokens"] < 128:
                 n = 0
-            want = expected_counts() if rehearse else expected_counts(temporal_attention_cs=n)
+            want = expected_counts() if rehearse else expected_counts(
+                temporal_attention_cs=n, group_norm_fused=int(r["variant"] in normed and _group_norm_takes(
+                    r["channels"], model_cfg.unet.norm_num_groups, torch.bfloat16)))
             ok = r["finite"] and r["launches_per_call"] == want
         if not ok or (not rehearse and not r["ms"]):
             failed.append(f"profile_motion: {r}")
@@ -3854,7 +4129,7 @@ def phase_train(model_cfg, dev, rehearse: bool, steps: int = TRAIN_STEPS, phase:
         metrics.append({k: float(v) for k, v in m.items()})
     counts = launch_counts()
     latent = tcfg.resolution // model_cfg.vae.spatial_scale_factor
-    per_step = launches_per_train_step(model_cfg.unet, latent, tcfg)
+    per_step = launches_per_train_step(model_cfg, latent, tcfg)
     expected = expected_counts(**{k: 0 if rehearse else steps * v for k, v in per_step.items()})
     moved = [n for n, p in state.trainable_params().items() if not torch.equal(p.detach(), start[n])]
     line = {

@@ -11,7 +11,8 @@ Compute dtype is apart from storage dtype, as Flax's ``dtype=`` makes it:
 activation's dtype at use, so fp32 trainables and bf16 (or fp32) frozen
 weights run one bf16 forward and the gradient reaches the fp32 master
 through the cast.  ``GroupNorm`` computes in fp32 and returns the input's
-dtype.  Where the two dtypes agree the casts are no-ops.
+dtype, on the card's kernel where no gradient is recorded (``group_norm``).
+Where the two dtypes agree the casts are no-ops.
 """
 
 from __future__ import annotations
@@ -25,18 +26,23 @@ import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.ops.conv3x3 import gn_silu_conv3x3
 from i2v_adapter_tpu_torch.ops.int8 import drop_weights, int8_conv, prepare_weights
-from i2v_adapter_tpu_torch.ops.norms import fold_gn_affine
+from i2v_adapter_tpu_torch.ops.norms import (fold_gn_affine, fused_group_norm_applies, group_norm_fused,
+                                              group_norm_plain)
 
 
-def group_norm(x, num_groups: int, eps: float, weight, bias) -> torch.Tensor:
+def group_norm(x, num_groups: int, eps: float, weight, bias, silu: bool = False, absmax: bool = False):
     """GroupNorm of a channel-last tensor ``(N, ..., C)``: statistics per
-    sample and group over every non-batch position, in fp32."""
-    shape = x.shape
-    c = shape[-1]
-    xf = x.reshape(shape[0], -1, num_groups, c // num_groups).float()
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, unbiased=False)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(shape)
-    return (y * weight.float() + bias.float()).to(x.dtype)
+    sample and group over every non-batch position, in fp32; ``silu``
+    applies SiLU to the result.  Where autograd records nothing and the
+    card's kernel takes the operands (``ops.norms.fused_group_norm_applies``)
+    it runs ``ops.norms.group_norm_fused``, the SiLU folded in; everywhere
+    else the composition ``ops.norms.group_norm_plain``.  With ``absmax``
+    returns ``(out, max |out|)``, the second a 0-d fp32 tensor from the
+    kernel and None from the composition."""
+    if fused_group_norm_applies(x, num_groups, weight, bias):
+        return group_norm_fused(x, num_groups, eps, weight, bias, silu=silu, absmax=absmax)
+    y = group_norm_plain(x, num_groups, eps, weight, bias, silu)
+    return (y, None) if absmax else y
 
 
 class GroupNorm(nn.Module):
@@ -47,8 +53,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x):
-        return group_norm(x, self.num_groups, self.eps, self.weight, self.bias)
+    def forward(self, x, silu: bool = False, absmax: bool = False):
+        return group_norm(x, self.num_groups, self.eps, self.weight, self.bias, silu, absmax)
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -157,9 +163,12 @@ class ResnetBlock2D(nn.Module):
 
     def _norm_silu_conv(self, norm: GroupNorm, conv: ConvNHWC, h):
         if self.int8:
-            return int8_conv(F.silu(norm(h)), conv.weight.permute(2, 3, 1, 0), conv.bias)
+            # the kernel's abs-max of its own output spares the conv's read
+            # (None from the composition: the conv reads its own)
+            a, peak = norm(h, silu=True, absmax=True)
+            return int8_conv(a, conv.weight.permute(2, 3, 1, 0), conv.bias, absmax=peak)
         if self.conv_impl != "pallas":
-            return conv(F.silu(norm(h)))
+            return conv(norm(h, silu=True))
         a, s = fold_gn_affine(h, norm.num_groups, norm.eps, norm.weight, norm.bias)
         # an HWIO view of the OIHW parameter: the kernel reads that storage
         # as it is (see ops/conv3x3.py), so nothing is repacked per call

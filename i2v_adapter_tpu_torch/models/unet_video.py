@@ -375,6 +375,6 @@ class VideoUNet(nn.Module):
             block_skips, skips = skips[-num_layers:], skips[:-num_layers]
             x = self._block(getattr(self, f"up_blocks_{i}"), x, block_skips, emb, ctx, **block,
                             freeu=freeu)
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x, silu=True))
         out = x.reshape(b, f, h, w, cfg.out_channels)
         return (out, encoder_features) if return_encoder else out

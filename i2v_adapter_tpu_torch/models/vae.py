@@ -8,7 +8,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from i2v_adapter_tpu_torch.config import VAEConfig
 from i2v_adapter_tpu_torch.device import DeviceLike, resolve_device
@@ -80,7 +79,7 @@ class Encoder(nn.Module):
             if i < n - 1:
                 x = getattr(self, f"down_{i}_downsample")(x)
         x = self.mid_resnets_1(self.mid_attn(self.mid_resnets_0(x)))
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -112,7 +111,7 @@ class Decoder(nn.Module):
                 x = getattr(self, f"up_{i}_resnets_{j}")(x)
             if i < n - 1:
                 x = getattr(self, f"up_{i}_upsample")(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -28,7 +28,8 @@ kernels or raises:
   ``int8_conv3x3_kernel``, a hand-written implicit-GEMM conv on int8
   ``wgmma`` (``csrc/int8_conv3x3.cu``) that quantises ``x`` while staging
   it, so the int8 activation never reaches device memory; only the abs-max
-  pass (one ``aminmax`` read) runs before it;
+  pass (one ``aminmax`` read) runs before it, and not even that where the
+  caller passes ``absmax`` (the resnets: the fused GroupNorm's);
 * any other stride or padding (the stride-2 UNet downsamplers): ``xq``,
   an int8 im2col gathered in PyTorch (pad, nine strided slices, ``cat``),
   then K7 (``ops.profile_int8_dense.int8_matmul``) with its dequantising
@@ -204,13 +205,18 @@ def cached_weights(kernel: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.T
     return base._int8_weights[1], base._int8_weights[2]
 
 
-def activation_scale(x: torch.Tensor) -> torch.Tensor:
-    """``max(max |x|, 1e-12) / 127`` as a 0-d fp32 tensor on x's device, from
-    one read of x (``aminmax``).  Inside a mesh's evaluation ``x`` is this
-    rank's slab, and the scale is the MAX over the slabs
+def absmax_scale(peak: torch.Tensor) -> torch.Tensor:
+    """``max(peak, 1e-12) / 127`` as a 0-d fp32 tensor, ``peak`` being max
+    |x| (0-d).  Inside a mesh's evaluation ``x`` is this rank's slab, and
+    the scale is the MAX over the slabs
     (``parallel.spmd.shared_activation_scale``): the whole tensor's."""
+    return shared_activation_scale(_div127(torch.clamp_min(peak.float(), 1e-12)))
+
+
+def activation_scale(x: torch.Tensor) -> torch.Tensor:
+    """``absmax_scale`` of max |x|, from one read of x (``aminmax``)."""
     lo, hi = torch.aminmax(x)
-    return shared_activation_scale(_div127(torch.clamp_min(torch.maximum(-lo, hi).float(), 1e-12)))
+    return absmax_scale(torch.maximum(-lo, hi))
 
 
 def quantize_activation(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -269,12 +275,13 @@ def int8_conv_int32_plain(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
     return torch.cat(outs)
 
 
-def int8_conv_plain(x, kernel, bias, stride: int = 1, padding: int = 1, weights=None) -> torch.Tensor:
+def int8_conv_plain(x, kernel, bias, stride: int = 1, padding: int = 1, weights=None,
+                    absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole function in plain PyTorch: quantise, exact int32 conv,
     dequantise (``weights``: ``kernel``'s ``(wq, ws)`` when already
-    quantised)."""
+    quantised; ``absmax``: max |x| when already known)."""
     wq, ws = weights if weights is not None else quantize_weight_plain(kernel)
-    xs = activation_scale(x)
+    xs = activation_scale(x) if absmax is None else absmax_scale(absmax)
     y = int8_conv_int32_plain(quantize_activation(x, xs), wq, stride, padding)
     return dequantize(y, xs, ws, bias, x.dtype)
 
@@ -346,22 +353,25 @@ def launch_counts() -> dict:
 
 
 def int8_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, stride: int = 1,
-              padding: int = 1) -> torch.Tensor:
+              padding: int = 1, absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's ``int8_conv`` (see the module docstring); ``kernel``
     HWIO (the models pass an HWIO view of their OIHW parameter, whose
     quantised pair ``cached_weights`` finds; any other kernel is quantised
-    in this call).  Serving only: no gradient is recorded."""
+    in this call).  ``absmax``: max |x| as a 0-d fp32 tensor when the caller
+    has it (the fused GroupNorm returns its output's), so that no
+    ``aminmax`` reads x again; the scale is ``absmax_scale`` of it either
+    way.  Serving only: no gradient is recorded."""
     if tuple(kernel.shape[:2]) != (3, 3) or kernel.shape[2] != x.shape[-1]:
         raise ValueError(f"int8_conv: x {tuple(x.shape)} kernel {tuple(kernel.shape)}")
     _check_padding(padding)
     weights = cached_weights(kernel)
     if x.device.type == "cpu":
-        return int8_conv_plain(x, kernel, bias, stride, padding, weights)
+        return int8_conv_plain(x, kernel, bias, stride, padding, weights, absmax)
     if x.device.type != "cuda":
         raise RuntimeError(f"int8_conv: unsupported device {x.device}")
     x, kernel, bias = x.detach(), kernel.detach(), bias.detach()
     wq, ws = weights if weights is not None else quantize_weight(kernel)
-    xs = activation_scale(x)
+    xs = activation_scale(x) if absmax is None else absmax_scale(absmax)
     if stride == 1 and padding == 1:
         return int8_conv3x3_kernel(x, wq, xs, ws, bias)
     from i2v_adapter_tpu_torch.ops.profile_int8_dense import int8_matmul

@@ -4,8 +4,9 @@ Each wrapper counts its launches on its own ``launches`` attribute (K1 and
 K3 ``attention.flash_attention`` / ``flash_attention_bwd``, K2
 ``attention.temporal_attention_cs``, K4 ``conv3x3.conv3x3_kernel``, K7
 ``profile_int8_dense.int8_matmul``, the int8 conv
-``int8.int8_conv3x3_kernel`` and its weight quantiser
-``int8.quantize_weights``).  A CUDA graph records a wrapper's launch once,
+``int8.int8_conv3x3_kernel``, its weight quantiser ``int8.quantize_weights``
+and the GroupNorm kernel ``norms.group_norm_fused``, one count per call of
+its two launches).  A CUDA graph records a wrapper's launch once,
 at capture, where nothing runs, and runs it at every replay: the scan
 dispatch takes a capture's counts back (``restore``) and adds them at each
 replay (``add``), so the counts stay the launches that ran: ``capture``
@@ -19,11 +20,11 @@ from typing import Callable, Dict, Tuple
 
 
 def _wrappers():
-    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, profile_int8_dense
+    from i2v_adapter_tpu_torch.ops import attention, conv3x3, int8, norms, profile_int8_dense
 
     return (attention.flash_attention, attention.flash_attention_bwd, attention.temporal_attention_cs,
             conv3x3.conv3x3_kernel, profile_int8_dense.int8_matmul, int8.int8_conv3x3_kernel,
-            int8.quantize_weights)
+            int8.quantize_weights, norms.group_norm_fused)
 
 
 def snapshot() -> Dict[str, int]:

@@ -18,7 +18,9 @@ correlation id).  Kernels launched outside every module go to one bucket,
 
     python -m i2v_adapter_tpu_torch.ops.trace_unet [--evals N] [--exact] [--top 30] [--device cpu]
 
-prints JSON records (``summary``: totals and categories; ``by_module_kind``:
+prints JSON records (``summary``: totals, categories and the counted
+kernels' launches per evaluation -- ``group_norm_fused`` there is how many
+GroupNorm sites took the kernel; ``by_module_kind``:
 device ms per module class, split by category; ``top_modules``: the
 innermost modules with the most device time; ``elementwise``: the
 elementwise category's split by module class and its top modules), then
@@ -43,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from i2v_adapter_tpu_torch.device import resolve_device
+from i2v_adapter_tpu_torch.ops import launches
 from i2v_adapter_tpu_torch.ops.profiling import card_line, emit
 from i2v_adapter_tpu_torch.tools.profile_step import category, device_kernels
 
@@ -207,6 +210,7 @@ def trace(evaluate, unet, device: torch.device, evals: int = 1, top: int = 30) -
     on_card = device.type == "cuda"
     evaluate()  # warm-up: kernel builds, cuDNN and cuBLAS plans
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    before = launches.snapshot()
     with module_ranges(unet) as kinds:
         if on_card:
             torch.cuda.synchronize(device)
@@ -228,6 +232,7 @@ def trace(evaluate, unet, device: torch.device, evals: int = 1, top: int = 30) -
     profiler_ms = sum(ms for name, ms in device_kernels(prof)[0].items()
                       if not name.startswith(PREFIX)) if on_card else None
     tables.update(wall_ms=wall_ms, profiler_kernel_ms=profiler_ms, work_items=len(attributed),
+                  launches={name: n // evals for name, n in launches.since(before).items()},
                   idle_share=(1.0 - tables["total_ms"] / wall_ms) if on_card else None)
     return tables
 
@@ -258,7 +263,8 @@ def main(argv=None, model_config=None) -> int:
          total_ms=tables["total_ms"] * per, module_sum_ms=tables["module_sum_ms"] * per,
          profiler_kernel_ms=None if tables["profiler_kernel_ms"] is None else tables["profiler_kernel_ms"] * per,
          outside_ms=tables["outside_ms"] * per, idle_share=tables["idle_share"],
-         work_items=tables["work_items"] // args.evals, by_category_ms=scaled(tables["by_category_ms"]))
+         work_items=tables["work_items"] // args.evals, launches_per_eval=tables["launches"],
+         by_category_ms=scaled(tables["by_category_ms"]))
     emit("trace_unet", result="by_module_kind", **head, ms=scaled(tables["by_module_kind_ms"]),
          by_category_ms={k: scaled(v) for k, v in tables["by_module_kind_and_category_ms"].items()})
     emit("trace_unet", result="top_modules", **head, ms=[[p, ms * per, k] for p, ms, k in tables["top_modules_ms"]])

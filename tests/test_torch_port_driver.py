@@ -682,10 +682,10 @@ def test_validation_sample_equals_fresh_pipeline(env, monkeypatch):
         samples.extend(real(*a, **k))
         return samples
 
-    def counting(x, kernel, bias, stride=1, padding=1):
+    def counting(x, kernel, bias, stride=1, padding=1, absmax=None):
         key = (stride, x.shape[1], x.shape[3], kernel.shape[-1])
         sites[key] = sites.get(key, 0) + 1
-        return real_conv(x, kernel, bias, stride, padding)
+        return real_conv(x, kernel, bias, stride, padding, absmax=absmax)
 
     monkeypatch.setattr(pdriver, "_run_validation", keep)
     monkeypatch.setattr(player, "int8_conv", counting)

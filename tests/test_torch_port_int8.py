@@ -143,10 +143,10 @@ class Forcing:
         self.mp.setattr(jlayers, "int8_conv", recording)
 
     def force(self):
-        def forced(x, kernel, bias, stride=1, padding=1):
+        def forced(x, kernel, bias, stride=1, padding=1, absmax=None):
             want = self.log[len(self.sites)]
             wq, ws = I.quantize_weight(kernel)
-            xs = I.activation_scale(x)
+            xs = I.activation_scale(x) if absmax is None else I.absmax_scale(absmax)
             xq = I.quantize_activation(x, xs)
             diff = (xq.int() - torch.tensor(want).int()).abs()
             self.sites.append({"shape": tuple(xq.shape), "flips": int((diff > 0).sum()),
@@ -339,10 +339,10 @@ def test_int8_launch_derivation_matches_the_model(monkeypatch):
     calls = []
     real = player.int8_conv
 
-    def counting(x, kernel, bias, stride=1, padding=1):
+    def counting(x, kernel, bias, stride=1, padding=1, absmax=None):
         b, h, w, c = x.shape
         calls.append((stride, h, w, c, kernel.shape[-1]))
-        return real(x, kernel, bias, stride, padding)
+        return real(x, kernel, bias, stride, padding, absmax=absmax)
 
     monkeypatch.setattr(player, "int8_conv", counting)
     mc = pconfig.tiny_test_config()

@@ -702,3 +702,258 @@ def test_tiny_driver_run_on_card(cuda_device, tmp_path):
                  "epoch_2/i2v_adapter/diffusion_pytorch_model.safetensors",
                  "pipeline/unet/flax_model.safetensors", "pipeline/model_config.json"):
         assert os.path.exists(task / path), path
+
+
+# ---------------------------------------------------------------------------
+# the GroupNorm kernel (csrc/group_norm.cu) against the composition
+# ---------------------------------------------------------------------------
+
+# (samples, positions, channels, eps) of every GroupNorm site of a 512 px and
+# a 256 px CFG evaluation (32 frame-evals; the resnets' norm1 inputs with the
+# up blocks' concatenated skips, eps 1e-5; the transformers' norms, 1e-6),
+# the motion norm over (F, H, W) per clip (2 clips, 1e-6), and the VAE
+# decoder's at 2 frames (512 and 256 px, 1e-6)
+GN_SITES = sorted({
+    *[(32, h * h, c, 1e-5) for h, cs in ((64, (320, 960, 640)), (32, (320, 640, 1920, 1280, 960)),
+                                         (16, (320, 640, 1280, 2560, 1920, 960)), (8, (640, 1280, 2560, 1920)),
+                                         (4, (1280, 2560))) for c in cs],
+    *[(32, h * h, c, 1e-6) for h, c in ((64, 320), (32, 640), (16, 1280), (32, 320), (16, 640), (8, 1280))],
+    *[(2, 16 * h * h, c, 1e-6) for h, c in ((64, 320), (32, 640), (16, 1280), (8, 1280), (32, 320),
+                                           (16, 640), (4, 1280))],
+    *[(2, h * h, c, 1e-6) for h, c in ((64, 512), (128, 512), (256, 512), (256, 256), (512, 256), (512, 128),
+                                       (32, 512), (128, 256), (256, 128))],
+})
+
+
+def _gn_operands(dev, n, rows, c, dtype, seed):
+    """Activations with a per-channel offset and spread, bf16-stored (or
+    fp32) affine parameters."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spread = 0.5 + 2 * torch.rand(c, generator=g, device=dev)
+    x = torch.randn(n, rows, c, generator=g, device=dev) * spread + torch.randn(c, generator=g, device=dev)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    b = 0.2 * torch.randn(c, generator=g, device=dev)
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+def _gn_close(got, want) -> bool:
+    """bf16: within 2 ulps of each value, an ulp taken at least at 2^-12 of
+    max |want| (a value near 0 differs by the statistics' fp32 rounding,
+    which is absolute); fp32: within 4e-6 of max |want| (that rounding:
+    summation orders over up to 10^6 values per group)."""
+    fp32 = want.dtype == torch.float32
+    got, want = got.float(), want.float()
+    peak = float(want.abs().max())
+    if fp32:
+        return float((got - want).abs().max()) <= 4e-6 * peak
+    mag = torch.clamp_min(want.abs(), peak * 2.0 ** -12)
+    return bool(((got - want).abs() <= 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+
+
+# fp32 at the widths whose rows fit one CTA (C <= 2048; the rule sends
+# 2560 fp32 channels to the composition)
+GN_CASES = [(*site, dtype) for dtype in (torch.bfloat16, torch.float32) for site in GN_SITES
+            if dtype == torch.bfloat16 or site[2] <= 2048]
+
+
+def _check_gn_case(dev, n, rows, c, groups, eps, dtype, silu):
+    """The kernel's plain apply against ``group_norm_plain`` on the same
+    inputs; its SiLU equal bit for bit to ``F.silu`` of its own plain output
+    (the statistics are the same in every launch); its abs-max equal to
+    max |out|, so the int8 scale is ``activation_scale``'s bit for bit."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.ops import int8 as Q
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    x, w, b = _gn_operands(dev, n, rows, c, dtype, seed=n + rows + c + groups)
+    before = N.group_norm_fused.launches
+    got = N.group_norm_fused(x, groups, eps, w, b)
+    assert N.group_norm_fused.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    if not silu:
+        assert _gn_close(got, N.group_norm_plain(x, groups, eps, w, b))
+        out, peak = N.group_norm_fused(x, groups, eps, w, b, absmax=True)
+    else:
+        out, peak = N.group_norm_fused(x, groups, eps, w, b, silu=True, absmax=True)
+        assert torch.equal(out, F.silu(got))
+    assert peak.dtype == torch.float32 and peak.ndim == 0
+    assert torch.equal(peak, out.float().abs().amax())
+    assert torch.equal(Q.absmax_scale(peak), Q.activation_scale(out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu", [False, True], ids=["apply", "silu_absmax"])
+@pytest.mark.parametrize("n,rows,c,eps,dtype", GN_CASES, ids=lambda v: str(v))
+def test_group_norm_kernel_matches_composition_on_card(cuda_device, n, rows, c, eps, dtype, silu):
+    """Every site of the video UNet and the VAE decoder, 32 groups
+    (``_check_gn_case``)."""
+    _check_gn_case(cuda_device, n, rows, c, 32, eps, dtype, silu)
+
+
+# (samples, positions, channels) of the latent zoo's samplers (CFG-doubled
+# 32x32 latents: SimpleUNet's levels with the up path's concatenated inputs,
+# SimpleUNet3D's 16 frames and its time stack over (F, H, W) per clip; its
+# norms take 8 groups) and of the dome (8 images of 64x64; 1 group)
+GN_OTHER_SITES = [(2, 1024, 64), (2, 1024, 192), (2, 256, 384), (2, 64, 512), (32, 1024, 64), (32, 256, 128),
+                  (32, 64, 256), (2, 16 * 1024, 64), (2, 16 * 64, 256), (8, 4096, 64), (8, 1024, 128),
+                  (8, 256, 256), (8, 64, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu", [False, True], ids=["apply", "silu_absmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("groups", [1, 8, 32])
+@pytest.mark.parametrize("n,rows,c", GN_OTHER_SITES, ids=lambda v: str(v))
+def test_group_norm_kernel_matches_composition_at_other_groups_on_card(cuda_device, n, rows, c, groups, dtype,
+                                                                        silu):
+    """The zoo's and the dome's sites with 1, 8 and 32 groups, fp32 (as they
+    run) and bf16 (``_check_gn_case``)."""
+    _check_gn_case(cuda_device, n, rows, c, groups, 1e-6, dtype, silu)
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_refuses_what_the_rule_refuses_on_card(cuda_device):
+    """2560 fp32 channels (640 vectors a row, over one CTA) and an odd
+    channel count: the wrapper raises, the models' GroupNorm keeps the
+    composition with no launch."""
+    from i2v_adapter_tpu_torch.models import layers
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    for c, groups, dtype in ((2560, 32, torch.float32), (20, 4, torch.bfloat16)):
+        x, w, b = _gn_operands(cuda_device, 2, 64, c, dtype, seed=c)
+        before = N.group_norm_fused.launches
+        with pytest.raises(ValueError, match="channels"):
+            N.group_norm_fused(x, groups, 1e-5, w, b)
+        with torch.inference_mode():
+            got = layers.group_norm(x, groups, 1e-5, w, b, silu=True)
+        assert N.group_norm_fused.launches == before
+        assert torch.equal(got, N.group_norm_plain(x, groups, 1e-5, w, b, True))
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_copies_strided_and_unaligned_inputs_on_card(cuda_device):
+    """A strided x (every second position) and a contiguous x one element
+    past an aligned base: the wrapper copies each and launches once, equal
+    bit for bit to the kernel on a contiguous copy."""
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    x, w, b = _gn_operands(cuda_device, 2, 128, 320, torch.bfloat16, seed=5)
+    wide = torch.zeros(2, 128, 2, 320, dtype=x.dtype, device=cuda_device)
+    wide[:, :, 0] = x
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    flat[1:] = x.reshape(-1)
+    for view in (wide[:, :, 0], flat[1:].view(x.shape)):
+        assert not view.is_contiguous() or view.data_ptr() % 16
+        before = N.group_norm_fused.launches
+        got, peak = N.group_norm_fused(view, 32, 1e-5, w, b, silu=True, absmax=True)
+        assert N.group_norm_fused.launches == before + 1
+        want, want_peak = N.group_norm_fused(x, 32, 1e-5, w, b, silu=True, absmax=True)
+        assert torch.equal(got, want) and torch.equal(peak, want_peak)
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_replays_in_a_cuda_graph_on_card(cuda_device):
+    """Captured once (``ops.launches.capture``: counted at replays, not at
+    capture) and replayed on new inputs: each replay equals an eager call on
+    the same input bit for bit, abs-max included -- the second input's
+    far smaller abs-max shows the slot is zeroed inside the graph."""
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    x0, w, b = _gn_operands(cuda_device, 32, 256, 640, torch.bfloat16, seed=1)
+    x1 = torch.zeros_like(x0)  # every group constant: out = silu(beta), far under x0's abs-max
+    static, outs = x0.clone(), {}
+
+    def body():
+        outs["y"], outs["peak"] = N.group_norm_fused(static, 32, 1e-5, w, b, silu=True, absmax=True)
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        body()
+        torch.cuda.synchronize(cuda_device)
+        before = launches.snapshot()["group_norm_fused"]
+        graph, counts = launches.capture(body)
+        assert counts["group_norm_fused"] == 1 and launches.snapshot()["group_norm_fused"] == before
+        peaks = []
+        for x in (x0, x1):
+            static.copy_(x)
+            launches.replay(graph, counts)
+            want, want_peak = N.group_norm_fused(x, 32, 1e-5, w, b, silu=True, absmax=True)
+            torch.cuda.synchronize(cuda_device)
+            assert torch.equal(outs["y"], want) and torch.equal(outs["peak"], want_peak)
+            peaks.append(float(outs["peak"]))
+        assert launches.snapshot()["group_norm_fused"] == before + 4
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert peaks[1] < peaks[0]
+    del graph
+
+
+@pytest.mark.gpu
+def test_group_norm_dispatch_on_card(cuda_device):
+    """``models.layers.group_norm`` on the card: the composition wherever
+    autograd records (output bit for bit, the gradient flows, no launch),
+    the kernel where it does not (grad mode off, inference mode, or nothing
+    requires a gradient)."""
+    from i2v_adapter_tpu_torch.models import layers
+    from i2v_adapter_tpu_torch.ops import norms as N
+
+    x, w, b = _gn_operands(cuda_device, 4, 64, 320, torch.bfloat16, seed=3)
+    before = N.group_norm_fused.launches
+    xg = x.clone().requires_grad_(True)
+    y = layers.group_norm(xg, 32, 1e-5, w, b, silu=True)
+    assert N.group_norm_fused.launches == before and y.requires_grad
+    assert torch.equal(y, N.group_norm_plain(x, 32, 1e-5, w, b, True))
+    y.float().sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    wg = w.clone().requires_grad_(True)
+    layers.group_norm(x, 32, 1e-5, wg, b)
+    assert N.group_norm_fused.launches == before
+    with torch.no_grad():
+        a = layers.group_norm(xg, 32, 1e-5, w, b, silu=True)
+    with torch.inference_mode():
+        c = layers.group_norm(x, 32, 1e-5, w, b, silu=True)
+    d = layers.group_norm(x, 32, 1e-5, w, b, silu=True)
+    assert N.group_norm_fused.launches == before + 3
+    assert torch.equal(a, c) and torch.equal(a, d) and not d.requires_grad
+
+
+@pytest.mark.gpu
+def test_group_norm_kernel_at_every_unet_site_on_card(cuda_device):
+    """One int8 evaluation of the tiny video UNet in bf16 under inference
+    mode runs the kernel once per GroupNorm module; at every site, on the
+    activations the UNet gives it, the kernel's apply is within 2 bf16 ulps
+    of the composition, and what the site received (with SiLU where a conv
+    follows) is ``F.silu`` of that apply bit for bit."""
+    import torch.nn.functional as F
+
+    from i2v_adapter_tpu_torch.config import tiny_test_config
+    from i2v_adapter_tpu_torch.models import layers
+    from i2v_adapter_tpu_torch.ops import launches
+    from i2v_adapter_tpu_torch.ops import norms as N
+    from i2v_adapter_tpu_torch.ops import trace_unet
+
+    unet, evaluate = trace_unet.build(tiny_test_config(), cuda_device, True, 4, 64)
+    norms = [m for m in unet.modules() if isinstance(m, layers.GroupNorm)]
+    evaluate()
+    before = launches.snapshot()
+    evaluate()
+    assert launches.since(before)["group_norm_fused"] == len(norms) > 0
+    checked = []
+
+    def check(mod, args, kwargs, out):
+        x, silu = args[0], kwargs.get("silu", False)
+        got = out[0] if kwargs.get("absmax", False) else out
+        apply = N.group_norm_fused(x, mod.num_groups, mod.eps, mod.weight, mod.bias)
+        assert _gn_close(apply, N.group_norm_plain(x, mod.num_groups, mod.eps, mod.weight, mod.bias))
+        assert torch.equal(got, F.silu(apply) if silu else apply)
+        checked.append(silu)
+
+    handles = [m.register_forward_hook(check, with_kwargs=True) for m in norms]
+    try:
+        evaluate()
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(checked) == len(norms) and any(checked) and not all(checked)

@@ -44,7 +44,7 @@ from i2v_adapter_tpu_torch.training import (
     trainable_predicate,
 )
 from i2v_adapter_tpu_torch.utils.convert import flatten_tree, load_train_state, to_flax_tree
-from tests.torch_port_common import one_torch_thread, random_params  # noqa: F401
+from tests.torch_port_common import group_norm_as_on_card, one_torch_thread, random_params  # noqa: F401
 
 B, F, RES, L = 2, 3, 32, 16
 
@@ -290,8 +290,10 @@ def test_train_step_matches_jax(jax_params, options):
 
 
 def test_train_launch_derivation_matches_the_model(monkeypatch):
-    """chip_smoke's per-step launch counts (K1, K2, K3 with remat) equal
-    the wrapper calls of a real tiny train step, the flash-backward
+    """chip_smoke's per-step launch counts (K1, K2, K3 with remat, and the
+    GroupNorm kernel's calls by the card's rule: the conditioning's encode
+    and the frozen norms ahead of the first adapter, with their recompute)
+    equal the wrapper calls of a real tiny train step, the flash-backward
     threshold lowered to the 256-token sites."""
     monkeypatch.setattr(A, "FLASH_BWD_MIN_NK", 256)
     calls = {"flash_attention": 0, "flash_attention_bwd": 0, "temporal_attention_cs": 0,
@@ -308,6 +310,7 @@ def test_train_launch_derivation_matches_the_model(monkeypatch):
     for name in calls:
         module = conv3x3 if name == "conv3x3_kernel" else A
         monkeypatch.setattr(module, name, counting(module, name))
+    norms = group_norm_as_on_card(monkeypatch)
     from i2v_adapter_tpu_torch.utils.random_init import random_train_batch, random_train_state
 
     mc = pconfig.tiny_test_config()
@@ -316,8 +319,8 @@ def test_train_launch_derivation_matches_the_model(monkeypatch):
                              mixed_precision="none")
     state = random_train_state(mc, tc, "cpu")
     make_train_step(mc, tc, device="cpu")(state, random_train_batch(mc, tc, "cpu"))
-    assert calls == chip_smoke.launches_per_train_step(mc.unet, 16, tc, min_nk=256)
+    assert dict(calls, group_norm_fused=norms["n"]) == chip_smoke.launches_per_train_step(mc, 16, tc, min_nk=256)
     assert chip_smoke.launches_per_train_step(
-        pconfig.VideoUNetConfig(), 32, dataclasses.replace(tc, train_mode="i2v")) == {
+        pconfig.I2VModelConfig(), 32, dataclasses.replace(tc, train_mode="i2v")) == {
         "flash_attention": 40, "flash_attention_bwd": 9, "temporal_attention_cs": 40,
-        "conv3x3_kernel": 0}
+        "conv3x3_kernel": 0, "group_norm_fused": 28}

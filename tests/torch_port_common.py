@@ -61,3 +61,29 @@ def random_params(module, *args, seed: int = 0, method=None, **kwargs):
         lambda: module.init(jax.random.PRNGKey(0), *args, method=method, **kwargs)
     )
     return {"params": _fill(shapes["params"], np.random.default_rng(seed))}
+
+
+def group_norm_as_on_card(monkeypatch) -> dict:
+    """``models.layers.group_norm`` dispatched by the card's rule with the
+    device left out: where autograd records nothing and the operands fit,
+    a stand-in for the kernel computes the composition (and its abs-max)
+    and counts the call in ``calls["n"]``, so a CPU test counts the
+    GroupNorm kernel's calls as the card would launch them."""
+    from i2v_adapter_tpu_torch.models import layers
+    from i2v_adapter_tpu_torch.ops import norms
+
+    calls = {"n": 0}
+
+    def applies(x, num_groups, weight, bias):
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias)):
+            return False
+        return norms._group_norm_refusal(x, num_groups, weight, bias) is None
+
+    def stand_in(x, num_groups, eps, weight, bias, silu=False, absmax=False):
+        calls["n"] += 1
+        y = norms.group_norm_plain(x, num_groups, eps, weight, bias, silu)
+        return (y, y.abs().amax().float()) if absmax else y
+
+    monkeypatch.setattr(layers, "fused_group_norm_applies", applies)
+    monkeypatch.setattr(layers, "group_norm_fused", stand_in)
+    return calls
