@@ -231,9 +231,10 @@ PALLAS_TRAIN_STEPS = 2
 # the same weights and draws: the two differ by bf16 rounding of 44 convs
 PALLAS_LOSS_REL_MAX = 0.02
 # the counted kernel wrappers (K1, K3, K2, K4, K7, the int8 3x3 conv, its
-# grouped weight quantiser and the GroupNorm kernel)
+# grouped weight quantiser, the GroupNorm kernel, and SVD's frame
+# convolution, which no SD1.5 path runs)
 KERNELS = ("flash_attention", "flash_attention_bwd", "temporal_attention_cs", "conv3x3_kernel",
-           "int8_matmul", "int8_conv3x3_kernel", "quantize_weights", "group_norm_fused")
+           "int8_matmul", "int8_conv3x3_kernel", "quantize_weights", "group_norm_fused", "temporal_conv3")
 
 
 def emit(obj) -> None:
@@ -1199,6 +1200,7 @@ GROUP_NORM_CASES = [
     ("unet resnet H16 C2560", 32, 256, 2560, 32, torch.bfloat16, 1e-5, True),
     ("unet resnet H8 C1280", 32, 64, 1280, 32, torch.bfloat16, 1e-5, True),
     ("motion H8 C1280", 2, 16 * 64, 1280, 32, torch.bfloat16, 1e-6, False),
+    ("svd temporal resnet clip 72x128 F25 C320", 2, 25 * 72 * 128, 320, 32, torch.bfloat16, 1e-6, True),
     ("decoder H512 C128", 16, 512 * 512, 128, 32, torch.bfloat16, 1e-6, True),
     ("decoder H256 C256", 16, 256 * 256, 256, 32, torch.bfloat16, 1e-6, True),
     ("zoo image H32 C64", 2, 1024, 64, 8, torch.float32, 1e-6, False),
@@ -1337,6 +1339,27 @@ MESH_TEMPORAL_CASES = (
     ("mesh (2,2,1) motion S4096 C160 H4", 1, 16, 4096, 160, 4, 10),
     ("mesh (2,2,1) motion S1024 C320 H4", 1, 16, 1024, 320, 4, 10),
     ("mesh (2,2,1) motion S256 C640 H4", 1, 16, 256, 640, 4, 10),
+)
+
+# Stable Video Diffusion img2vid-xt's shapes (1024x576: 72x128 latents, 25
+# frames, CFG: 50 frame-evaluations, head dim 64), weighted by launches per
+# SVD UNet evaluation: K1 at each level's spatial self-attention (5
+# transformers a level, 1 in the mid block) and K2 over the 25 frames of
+# each position; the clip-wide GroupNorm of the temporal resnets at level 0
+# is GROUP_NORM_CASES' "svd" row (10 a evaluation).
+# (name, bq, n, heads, launches per SVD evaluation)
+SVD_FLASH_CASES = (
+    ("svd attn1 N9216 D64", 50, 9216, 5, 5),
+    ("svd attn1 N2304 D64", 50, 2304, 10, 5),
+    ("svd attn1 N576 D64", 50, 576, 20, 5),
+    ("svd mid attn1 N144 D64", 50, 144, 20, 1),
+)
+# (name, S, C, heads, launches per SVD evaluation); b = 2 clips, F = 25
+SVD_TEMPORAL_CASES = (
+    ("svd temporal F25 S9216 C320", 9216, 320, 5, 5),
+    ("svd temporal F25 S2304 C640", 2304, 640, 10, 5),
+    ("svd temporal F25 S576 C1280", 576, 1280, 20, 5),
+    ("svd mid temporal F25 S144 C1280", 144, 1280, 20, 1),
 )
 
 # the shapes each rank gives K3 and K2 in the mesh_train phase's 4-card
@@ -1604,6 +1627,16 @@ def phase_kernels(dev, rehearse: bool):
     for name, b, f, seq_s, c, heads, w in MESH_TRAIN_TEMPORAL_CASES:
         row, ok = _temporal_case(name, b, f, f, seq_s, c, dev, 10, 0, heads=heads,
                                  other_weights={"launches_per_mesh_train_step": w})
+        rows["temporal_attention_cs"].append(row)
+        failed += [] if ok else [row["name"]]
+    for name, bq, n, heads, w in SVD_FLASH_CASES:
+        row, ok = _flash_case(name, bq, bq, n, 64, 0.0, dev, 5, 0, heads=heads,
+                              other_weights={"launches_per_svd_eval": w})
+        rows["flash_attention"].append(row)
+        failed += [] if ok else [row["name"]]
+    for name, seq_s, c, heads, w in SVD_TEMPORAL_CASES:
+        row, ok = _temporal_case(name, 2, 25, 25, seq_s, c, dev, 10, 0, heads=heads,
+                                 other_weights={"launches_per_svd_eval": w})
         rows["temporal_attention_cs"].append(row)
         failed += [] if ok else [row["name"]]
     emit({"phase": "kernels", "tol_fp32": TOL_FP32, "tol_bf16": TOL_BF16,

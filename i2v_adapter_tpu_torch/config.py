@@ -335,6 +335,131 @@ class I2VModelConfig(_ConfigBase):
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
 
 
+# ---------------------------------------------------------------------------
+# Stable Video Diffusion (img2vid-xt): the second model family
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SpatioTemporalUNetConfig(_ConfigBase):
+    """``UNetSpatioTemporalConditionModel`` (diffusers); defaults are
+    stabilityai/stable-video-diffusion-img2vid-xt's ``unet/config.json``.
+    ``resnet_eps`` is each down block's resnet eps (the plain last block's
+    is 1e-5), ``mid_eps`` the mid block's, ``up_eps`` every up block's.
+    The spatial self-attention takes the flash kernel from 128 keys, with
+    the exact running max."""
+
+    in_channels: int = 8
+    out_channels: int = 4
+    down_block_has_attention: Tuple[bool, ...] = (True, True, True, False)
+    up_block_has_attention: Tuple[bool, ...] = (False, True, True, True)
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    num_attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
+    cross_attention_dim: int = 1024
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 768
+    transformer_layers_per_block: int = 1
+    norm_num_groups: int = 32
+    resnet_eps: Tuple[float, ...] = (1e-6, 1e-6, 1e-6, 1e-5)
+    mid_eps: float = 1e-5
+    up_eps: float = 1e-6
+
+    def __post_init__(self):
+        n = len(self.block_out_channels)
+        for name in ("down_block_has_attention", "up_block_has_attention", "num_attention_heads", "resnet_eps"):
+            if len(getattr(self, name)) != n:
+                raise ValueError(f"{name} must have one entry per block: {getattr(self, name)}")
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+@dataclass(frozen=True)
+class TemporalVAEConfig(_ConfigBase):
+    """``AutoencoderKLTemporalDecoder``: the SD VAE encoder and
+    ``quant_conv``, a spatio-temporal decoder, no ``post_quant_conv``."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+
+    @property
+    def spatial_scale_factor(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+    def encoder_config(self) -> VAEConfig:
+        """The encoder's shape, as the SD VAE config names it."""
+        return VAEConfig(in_channels=self.in_channels, out_channels=self.out_channels,
+                         latent_channels=self.latent_channels, block_out_channels=self.block_out_channels,
+                         layers_per_block=self.layers_per_block, norm_num_groups=self.norm_num_groups,
+                         scaling_factor=self.scaling_factor)
+
+
+@dataclass(frozen=True)
+class EulerSchedulerConfig(_ConfigBase):
+    """``EulerDiscreteScheduler`` as SVD-XT configures it: Karras sigmas
+    from ``sigma_max`` down to ``sigma_min`` (``rho``), continuous timesteps
+    ``c_noise = 0.25 ln sigma``, v-prediction, the initial noise scaled by
+    ``sqrt(sigma_max^2 + 1)`` (``schedulers.euler``)."""
+
+    sigma_min: float = 0.002
+    sigma_max: float = 700.0
+    rho: float = 7.0
+
+
+@dataclass(frozen=True)
+class SVDModelConfig(_ConfigBase):
+    unet: SpatioTemporalUNetConfig = field(default_factory=SpatioTemporalUNetConfig)
+    vae: TemporalVAEConfig = field(default_factory=TemporalVAEConfig)
+    image_encoder: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
+    scheduler: EulerSchedulerConfig = field(default_factory=EulerSchedulerConfig)
+
+
+@dataclass(frozen=True)
+class SVDPipelineConfig(_ConfigBase):
+    """SVD-XT's published request defaults (diffusers
+    ``StableVideoDiffusionPipeline``) and the port's execution choices:
+    bf16 compute, the Euler state (the latents between steps) in
+    ``latents_dtype``, the decode ``decode_chunk_size`` frames a call."""
+
+    num_frames: int = 25
+    height: int = 576
+    width: int = 1024
+    num_inference_steps: int = 25
+    min_guidance_scale: float = 1.0
+    max_guidance_scale: float = 3.0
+    fps: int = 7
+    motion_bucket_id: int = 127
+    noise_aug_strength: float = 0.02
+    decode_chunk_size: int = 8
+    dtype: str = "bfloat16"
+    latents_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.decode_chunk_size < 1:
+            raise ValueError(f"decode_chunk_size must be >= 1, got {self.decode_chunk_size}")
+
+
+def tiny_svd_config() -> SVDModelConfig:
+    """A miniature SVD for unit tests (seconds on a CPU)."""
+    return SVDModelConfig(
+        unet=SpatioTemporalUNetConfig(
+            block_out_channels=(32, 64), down_block_has_attention=(True, False),
+            up_block_has_attention=(False, True), layers_per_block=1, num_attention_heads=(2, 4),
+            cross_attention_dim=8, addition_time_embed_dim=8, projection_class_embeddings_input_dim=24,
+            norm_num_groups=8, resnet_eps=(1e-6, 1e-5)),
+        vae=TemporalVAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8),
+        image_encoder=CLIPVisionConfig(hidden_size=16, intermediate_size=32, num_hidden_layers=2,
+                                       num_attention_heads=2, image_size=28, patch_size=14, projection_dim=8),
+    )
+
+
 def reference_train_config() -> TrainConfig:
     """The reference training workload (the JAX bench's config 4): 2 clips
     x 16 frames at 256 px, bf16 compute with fp32 trainables, frozen weights

@@ -5,6 +5,7 @@ from i2v_adapter_tpu_torch.schedulers.ddim import (
     truncate_timesteps,
 )
 from i2v_adapter_tpu_torch.schedulers.ddpm import ddpm_step
+from i2v_adapter_tpu_torch.schedulers.euler import euler_sigmas, euler_step, init_noise_sigma, scale_model_input
 from i2v_adapter_tpu_torch.schedulers.schedule import (
     NoiseSchedule,
     add_noise,
@@ -21,7 +22,11 @@ __all__ = [
     "ddim_step",
     "ddim_timesteps",
     "ddpm_step",
+    "euler_sigmas",
+    "euler_step",
     "get_velocity",
+    "init_noise_sigma",
     "make_schedule",
+    "scale_model_input",
     "truncate_timesteps",
 ]

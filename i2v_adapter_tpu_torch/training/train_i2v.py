@@ -175,7 +175,9 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
     A call is a ``micro_step`` span (``utils.tracing``) with the children
     ``draws``, ``conditioning`` (the VAE encode, the towers, the noise),
     ``forward`` (the UNet and the loss), ``backward`` (the gradients, the
-    checkpointed blocks' recompute included) and ``optimizer`` (the global
+    checkpointed blocks' recompute included), over a mesh ``grad_sync``
+    (the gradients summed and the loss all-reduced over the ranks) and
+    ``optimizer`` (the global
     norm, the non-finite guard, the accumulation or the update, EMA), each
     timed on the card by a CUDA event pair on the step's stream in every
     call (read lazily: ``Span.device_ms``, None until the end event has
@@ -310,7 +312,9 @@ def make_train_step(model_config: I2VModelConfig, train_config: TrainConfig,
         # every rank reissues each block's collectives in the same order
         with set_checkpoint_early_stop(False):
             loss, grads = local_loss_and_grads(state, batch, draws)
-        with torch.no_grad():
+        # the gradients' and the loss's reduction over the ranks, timed on the
+        # card (the mesh path only: one card's micro-step has no such span)
+        with torch.no_grad(), tracing.span("grad_sync", device_ms=True):
             grads = state.zero.sum_gradients(grads)
             loss = collectives.all_reduce(loss.reshape(1), "sum", mesh.group(GRAD_AXES)).reshape(())
         return loss, grads

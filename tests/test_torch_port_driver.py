@@ -162,13 +162,25 @@ def test_parse_args_errors_match_jax(capsys):
 
 
 @pytest.fixture(scope="module")
-def unmeshed_run(env):
+def mesh_env(env, tmp_path_factory):
+    """``env`` with the port's own tiny pretrained directory, whose weights
+    are drawn at trained scales: its losses are of order 1, where 1e-5 is
+    some 80 fp32 ulps.  ``env``'s unscaled weights give losses near 200,
+    where 1e-5 is under one ulp and the 2 ranks' gradient sum, added in
+    another order than the one-process batch's, may round apart."""
+    root = tmp_path_factory.mktemp("port_driver_mesh")
+    write_port_dir(str(root / "pretrained"), PCFG, seed=3)
+    return dict(env, root=str(root), pretrained=str(root / "pretrained"))
+
+
+@pytest.fixture(scope="module")
+def unmeshed_run(mesh_env):
     """The driver on one process: the losses the meshed runs must equal."""
-    return _train(env, task_name="one_rank", checkpointing_steps=2)
+    return _train(mesh_env, task_name="one_rank", checkpointing_steps=2)
 
 
 @pytest.mark.parametrize("flags", [["--data_fsdp", "2"], ["--seq_parallel", "2"], ["--bench_scaling"]])
-def test_multi_gpu_options_refused(env, unmeshed_run, flags, tmp_path):
+def test_multi_gpu_options_refused(mesh_env, unmeshed_run, flags, tmp_path):
     """The JAX driver's multi-device options, once refused, run on 2 gloo
     ranks (``main(..., ranks=2)``): ``--data_fsdp 2`` (the batch's 2 clips
     over fsdp, each rank decoding its clip) and ``--seq_parallel 2`` (the 4
@@ -191,19 +203,19 @@ def test_multi_gpu_options_refused(env, unmeshed_run, flags, tmp_path):
         assert [r["global_batch"] for r in records] == [1, 2, 2, 1] and all(np.isfinite(r["loss"]) for r in records)
         return
     task = "mesh_" + flags[0].strip("-")
-    result = pdriver.main(_argv(env, device="cpu", task_name=task, checkpointing_steps=2) + flags,
+    result = pdriver.main(_argv(mesh_env, device="cpu", task_name=task, checkpointing_steps=2) + flags,
                           model_config=PCFG, ranks=2)
     np.testing.assert_allclose(result["losses"], unmeshed_run["losses"], rtol=0, atol=1e-5)
-    task_dir = os.path.join(env["root"], "port", task)
+    task_dir = os.path.join(mesh_env["root"], "port", task)
     assert [s["step"] for s in result["state_saves"]] == [2]
-    one = _load(os.path.join(env["root"], "port", "one_rank", "state", "step_2.safetensors"))
+    one = _load(os.path.join(mesh_env["root"], "port", "one_rank", "state", "step_2.safetensors"))
     meshed = _load(os.path.join(task_dir, "state", "step_2.safetensors"))
     assert set(meshed) == set(one) and all(meshed[k].shape == one[k].shape for k in one)
     assert os.path.exists(os.path.join(task_dir, "epoch_1", "i2v_adapter", "diffusion_pytorch_model.safetensors"))
     assert os.path.exists(os.path.join(task_dir, "pipeline", "unet", "flax_model.safetensors"))
     # the refusal setup() makes before anything is built, on this mesh's shape
     odd = {"train_batch_size": 1} if flags[0] == "--data_fsdp" else {"n_frames": 3}
-    tc = pdriver.args_to_train_config(pdriver.parse_args(_argv(env, device="cpu", **odd) + flags))
+    tc = pdriver.args_to_train_config(pdriver.parse_args(_argv(mesh_env, device="cpu", **odd) + flags))
     mesh = pmesh.Mesh(dict(zip(pmesh.AXES, pmesh.mesh_shape(tc.mesh, 2))), 0, torch.device("cpu"), {})
     with pytest.raises(ValueError, match="do not split over the mesh"):
         pdriver.check_mesh_divides(tc, mesh)
